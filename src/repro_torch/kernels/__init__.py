@@ -1,0 +1,30 @@
+"""repro_torch.kernels — the PPA activation datapath on Hopper: three CUDA
+kernels written by hand (``csrc/``), their plain PyTorch versions, and the
+model-facing ops with the backend registry."""
+
+from typing import Dict
+
+from . import fused, ppa, ref, softmax_ppa
+from .ops import (Backend, TableConsts, available_backends, check_int32,
+                  get_backend, make_ppa_fn, pack_table, plan_ints, ppa_act,
+                  ppa_apply, ppa_gate, ppa_gate_act, ppa_softmax)
+
+__all__ = ["Backend", "TableConsts", "available_backends", "check_int32",
+           "get_backend", "make_ppa_fn", "pack_table", "plan_ints",
+           "ppa_act", "ppa_apply", "ppa_gate", "ppa_gate_act", "ppa_softmax",
+           "read_counts", "reset_counts"]
+
+_COUNTS = {"ppa_int": ppa.counts, "ppa_fused": fused.counts,
+           "softmax_ppa": softmax_ppa.counts, "ref": ref.counts}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count and plain-call count to 0."""
+    for c in _COUNTS.values():
+        for k in c:
+            c[k] = 0
+
+
+def read_counts() -> Dict[str, Dict[str, int]]:
+    """{kernel: {"launches": n, "plain": n}} (``ref`` has plain only)."""
+    return {name: dict(c) for name, c in _COUNTS.items()}

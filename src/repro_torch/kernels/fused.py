@@ -1,0 +1,115 @@
+"""The fused float -> PPA -> float kernel (``csrc/ppa_fused.cu``).
+
+Counterpart of ``repro/kernels/fused.py::ppa_fused_apply`` and registry
+backend ``cuda_fused`` (the reference's ``pallas_fused``): quantize,
+symmetry, clip, segment select, Horner, dequantize, saturation, symmetry
+restore and the optional ``x * T(x)`` gate in one pass, on float32 or
+bfloat16 tensors.
+
+:func:`condition_f32` is the plain composition (``repro/kernels/ops.py::
+_apply_f32`` op for op); with the plain integer datapath it is the plain
+version of the kernel, which the wrapper runs on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import check_cuda_input, get_lib, raise_on_error, stream_of
+from .ref import ppa_eval_ref
+
+__all__ = ["condition_f32", "counts", "ppa_fused_apply", "ppa_fused_plain"]
+
+#: kernel launches and plain-version calls
+counts = {"launches": 0, "plain": 0}
+
+_SYMMETRY_CODE = {None: 0, "odd": 1, "sigmoid": 2, "minus_x": 3}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_c = ctypes.c_void_p
+
+
+def eval_ref(tc, x_int: torch.Tensor) -> torch.Tensor:
+    """The plain integer datapath of a packed table."""
+    return ppa_eval_ref(x_int, tc.starts, tc.coefs, tc.plan)
+
+
+def condition_f32(tc, x0: torch.Tensor, eval_int, gate: bool
+                  ) -> torch.Tensor:
+    """float32 in -> float32 out deployment pipeline around ``eval_int``.
+
+    Range reduction (the conditioning around the NAF unit):
+      symmetry "odd":     f(-x) = -f(x)       -> evaluate |x|, restore sign
+      symmetry "sigmoid": f(-x) = 1 - f(x)    -> evaluate |x|, flip output
+      symmetry "minus_x": f(-x) = f(x) - x    -> softplus half-line
+      saturation:         x >= xe             -> sat_hi const, or x itself
+      gate:               multiply by the raw input (silu/gelu: x * T(x))
+    """
+    xf = x0.abs() if tc.symmetry else x0
+    neg = x0 < 0
+
+    # quantize to the input grid (round-half-away)
+    x_int = torch.floor(xf.abs() * float(1 << tc.w_in) + 0.5).to(torch.int32)
+    x_int = torch.where(xf < 0, -x_int, x_int)
+
+    oob_hi = x_int >= tc.hi
+    x_int_c = torch.clamp(x_int, tc.lo, tc.hi - 1)
+
+    y = eval_int(tc, x_int_c).to(torch.float32) / float(1 << tc.w_out)
+
+    if tc.sat_identity:
+        y = torch.where(oob_hi, xf, y)
+    elif tc.sat_hi is not None:
+        y = torch.where(oob_hi, float(tc.sat_hi), y)
+    if tc.symmetry == "odd":
+        y = torch.where(neg, -y, y)
+    elif tc.symmetry == "sigmoid":
+        y = torch.where(neg, 1.0 - y, y)
+    elif tc.symmetry == "minus_x":
+        y = torch.where(neg, y - xf, y)
+    if gate:
+        y = x0 * y
+    return y
+
+
+def ppa_fused_plain(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
+    """The plain version of the fused kernel: same dtype in and out."""
+    counts["plain"] += 1
+    return condition_f32(tc, x.to(torch.float32), eval_ref, gate).to(x.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = get_lib("ppa_fused")
+    if lib.ppa_fused_launch.argtypes is None:
+        lib.ppa_fused_launch.argtypes = [
+            _c, _c, ctypes.c_longlong, ctypes.c_int, _c, _c, ctypes.c_int,
+            _c, _c, ctypes.c_float, _c]
+        lib.ppa_fused_launch.restype = ctypes.c_int
+    return lib
+
+
+def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
+    """``T(x)`` (or ``x * T(x)`` with ``gate``) for a float32 or bfloat16
+    tensor of any shape; the output has the input's dtype."""
+    if x.device.type == "cpu":
+        return ppa_fused_plain(tc, x, gate)
+    check_cuda_input(x, tuple(_DTYPE_CODE), "ppa_fused")
+    if tc.starts.device != x.device:
+        raise ValueError(f"ppa_fused: table on {tc.starts.device}, "
+                         f"input on {x.device}")
+    y = torch.empty_like(x)
+    plan = (ctypes.c_int * len(tc.plan_ints))(*tc.plan_ints)
+    statics = (ctypes.c_int * 8)(
+        tc.lo, tc.hi, _SYMMETRY_CODE[tc.symmetry], tc.sat_hi is not None,
+        tc.sat_identity, gate, tc.w_in, tc.w_out)
+    sat_hi = 0.0 if tc.sat_hi is None else float(tc.sat_hi)
+    with torch.cuda.device(x.device):
+        rc = _lib().ppa_fused_launch(
+            x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype],
+            tc.starts.data_ptr(), tc.coefs.data_ptr(), tc.num_segments,
+            ctypes.cast(plan, _c), ctypes.cast(statics, _c), sat_hi,
+            stream_of(x))
+    raise_on_error(rc, "ppa_fused")
+    counts["launches"] += 1
+    return y

@@ -1,0 +1,78 @@
+"""Parameter specs shared by the models.
+
+Models declare their parameters as nested dicts of :class:`P` specs —
+shape, logical axis names and initializer — in the layouts of the JAX
+package (stacked ``layers`` axis first; ``wq (d, h, e)``, ``wo (h, e, d)``),
+so a parameter tree carries across unchanged (:func:`params_from_jax`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+__all__ = ["P", "init_params", "params_from_jax", "map_tree"]
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """One parameter spec."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"        # normal | zeros | ones
+    scale: Optional[float] = None   # stddev override for normal init
+    dtype: Any = None           # override the tree-level param dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def map_tree(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
+    """Materialize a spec tree on ``device`` (None: the card) from one
+    ``torch.Generator`` seeded with ``seed``.  Fan-in scaled normal (the
+    second-to-last axis is the contraction) unless the spec gives a
+    stddev; norm scales ones.  Each leaf is drawn in float32 and cast."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def mk(spec: P):
+        dt = spec.dtype or dtype
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dt, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=dev)
+        if spec.scale is not None:
+            std = spec.scale
+        else:
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+            std = 1.0 / math.sqrt(max(1, fan_in))
+        w = torch.randn(spec.shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return w.mul_(std).to(dt)
+
+    return map_tree(mk, specs)
+
+
+def params_from_jax(tree, device=None):
+    """Carry a parameter tree of the JAX package over: every leaf (numpy or
+    anything ``np.asarray`` takes) becomes a tensor of the same shape,
+    layout and dtype on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    return map_tree(
+        lambda a: torch.as_tensor(np.array(a), device=dev), tree)

@@ -1,0 +1,37 @@
+"""Gated (SwiGLU) MLP block."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .activations import ActBundle
+from .common import P
+
+__all__ = ["gated_mlp_params", "gated_mlp"]
+
+
+def _lp(layers, shape, axes, **kw):
+    if layers is None:
+        return P(shape, axes, **kw)
+    return P((layers,) + shape, ("layers",) + axes, **kw)
+
+
+def gated_mlp_params(d_model: int, d_ff: int, layers: Optional[int] = None
+                     ) -> dict:
+    return {
+        "w_gate": _lp(layers, (d_model, d_ff), ("embed", "mlp")),
+        "w_up": _lp(layers, (d_model, d_ff), ("embed", "mlp")),
+        "w_down": _lp(layers, (d_ff, d_model), ("mlp", "embed")),
+    }
+
+
+def gated_mlp(params: dict, x: torch.Tensor, acts: ActBundle,
+              gate: str = "silu") -> torch.Tensor:
+    """SwiGLU: down( act(x @ w_gate) * (x @ w_up) ).  With a PPA bundle the
+    silu is the gated sigmoid_wide table (the fused kernel on the card)."""
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    h = acts.gate(gate)(g) * u
+    return h @ params["w_down"]

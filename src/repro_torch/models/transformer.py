@@ -1,0 +1,211 @@
+"""Model assembly for the ``dec`` stage (dense decoder): parameter specs,
+prefill and decode.
+
+Counterpart of the ``dec`` path of ``repro/models/transformer.py``.  The
+reference scans a stacked layer axis under ``jax.lax.scan``; here
+:func:`prepare_params` casts the parameters to ``compute_dtype`` once and
+splits the stack into per-layer views, which a Python loop walks.  The
+decode cache keeps the reference's stacked layout (L, B, S, Hk, D) per
+stage and is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device
+from .activations import ActBundle
+from .attention import (AttnCfg, attn_params, attention, decode_attention,
+                        init_kv_cache)
+from .common import P, map_tree
+from .config import ModelCfg, StageCfg
+from .layers import embed_lookup, lm_head_logits, rmsnorm, rmsnorm_params
+from .mlp import gated_mlp, gated_mlp_params
+
+__all__ = ["param_specs", "prepare_params", "forward_hidden", "init_cache",
+           "prefill", "decode_step"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _check_dec(cfg: ModelCfg) -> None:
+    for st in cfg.stages:
+        if st.kind != "dec" or st.moe:
+            raise NotImplementedError(
+                f"{cfg.arch}: only dense 'dec' stages are ported "
+                f"(got {st.kind}{' moe' if st.moe else ''})")
+    if cfg.norm != "rmsnorm" or cfg.attn_impl != "dense":
+        raise NotImplementedError(
+            f"{cfg.arch}: only rmsnorm and dense attention are ported")
+    if cfg.qkv_bias or cfg.qk_norm or any(st.window for st in cfg.stages):
+        raise NotImplementedError(
+            f"{cfg.arch}: QKV bias, qk-norm and sliding windows are not "
+            "ported yet")
+    if cfg.vision_tokens or cfg.enc_layers:
+        raise NotImplementedError(f"{cfg.arch}: no vision/encoder port yet")
+
+
+def _attn_cfg(cfg: ModelCfg) -> AttnCfg:
+    return AttnCfg(d_model=cfg.d_model, n_q=cfg.n_q, n_kv=cfg.n_kv,
+                   head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+
+
+def _stage_key(i: int, st: StageCfg) -> str:
+    return f"s{i}_{st.kind}"
+
+
+def param_specs(cfg: ModelCfg) -> dict:
+    _check_dec(cfg)
+    out: Dict[str, Any] = {
+        "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
+        "ln_f": rmsnorm_params(cfg.d_model),
+        "stages": {
+            _stage_key(i, st): {
+                "ln1": rmsnorm_params(cfg.d_model, st.n_layers),
+                "attn": attn_params(_attn_cfg(cfg), st.n_layers),
+                "ln2": rmsnorm_params(cfg.d_model, st.n_layers),
+                "mlp": gated_mlp_params(cfg.d_model, cfg.d_ff, st.n_layers),
+            } for i, st in enumerate(cfg.stages)},
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = P((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                           scale=0.02)
+    return out
+
+
+def prepare_params(params: dict, cfg: ModelCfg, device=None) -> dict:
+    """Cast floating parameters to ``compute_dtype`` (once), move them to
+    ``device`` (None: where they are) and split every stage's stacked layer
+    axis into a list of per-layer dicts (views)."""
+    _check_dec(cfg)
+    dt = dtype_of(cfg.compute_dtype)
+    cast = map_tree(
+        lambda t: t.to(device=device,
+                       dtype=dt if t.is_floating_point() else t.dtype),
+        params)
+    stages = {}
+    for i, st in enumerate(cfg.stages):
+        key = _stage_key(i, st)
+        stages[key] = [map_tree(lambda t, j=j: t[j], cast["stages"][key])
+                       for j in range(st.n_layers)]
+    out = {k: v for k, v in cast.items() if k != "stages"}
+    out["stages"] = stages
+    return out
+
+
+def _head(params: dict) -> torch.Tensor:
+    return params.get("lm_head", params["embed"])
+
+
+def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
+                   acts: ActBundle) -> torch.Tensor:
+    """Final hidden (B, T, D) of a full sequence (prepared params)."""
+    h, _ = _prefill_hidden(params, cfg, tokens, acts, None, None)
+    return h
+
+
+def _layer(cfg, acfg, p, h, acts, positions):
+    a, kv = attention(p["attn"], acfg, rmsnorm(h, p["ln1"]), acts,
+                      positions=positions, return_kv=True)
+    h = h + a
+    h = h + gated_mlp(p["mlp"], rmsnorm(h, p["ln2"]), acts, gate=cfg.gate)
+    return h, kv
+
+
+def _prefill_hidden(params, cfg, tokens, acts, cache_len, cache_dtype):
+    h = embed_lookup(params["embed"], tokens)
+    b, t, _ = h.shape
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=h.device).expand(b, t)
+    cache = {}
+    for i, st in enumerate(cfg.stages):
+        key = _stage_key(i, st)
+        acfg = _attn_cfg(cfg)
+        packed = []
+        for p in params["stages"][key]:
+            h, (k, v) = _layer(cfg, acfg, p, h, acts, positions)
+            if cache_len is not None:
+                packed.append(_pack_ring(k, v, positions, cache_len,
+                                         cache_dtype))
+        if cache_len is not None:
+            cache[key] = {"kv": {n: torch.stack([c[n] for c in packed])
+                                 for n in ("k", "v", "pos")}}
+    return rmsnorm(h, params["ln_f"]), cache
+
+
+def init_cache(cfg: ModelCfg, batch: int, cache_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """Empty decode cache: per stage {"kv": {"k", "v": (L, B, S, Hk, D),
+    "pos": (L, B, S) = -1}}."""
+    _check_dec(cfg)
+    device = resolve_device(device)
+    out = {}
+    for i, st in enumerate(cfg.stages):
+        one = init_kv_cache(batch, cache_len, _attn_cfg(cfg), dtype, device)
+        out[_stage_key(i, st)] = {"kv": {
+            n: t.unsqueeze(0).repeat((st.n_layers,) + (1,) * t.dim())
+            for n, t in one.items()}}
+    return out
+
+
+def _pack_ring(k, v, positions, eff: int, dtype) -> dict:
+    """Pack full-prompt K/V (B, T, Hk, Dh) into a ring cache of length eff,
+    keeping the last ``eff`` positions at slots pos % eff."""
+    b, t = k.shape[:2]
+    keep = min(t, eff)
+    kk, vv = k[:, -keep:], v[:, -keep:]
+    pp = positions[:, -keep:]
+    slots = (pp[0] % eff).long()            # identical across batch
+    kc = torch.zeros((b, eff) + tuple(k.shape[2:]), dtype=dtype,
+                     device=k.device)
+    vc = torch.zeros((b, eff) + tuple(v.shape[2:]), dtype=dtype,
+                     device=v.device)
+    pc = torch.full((b, eff), -1, dtype=torch.int32, device=k.device)
+    kc[:, slots] = kk.to(dtype)
+    vc[:, slots] = vv.to(dtype)
+    pc[:, slots] = pp.to(torch.int32)
+    return {"k": kc, "v": vc, "pos": pc}
+
+
+def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
+            acts: ActBundle, cache_dtype=torch.bfloat16,
+            last_idx: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Run the full prompt once (prepared params); return (last-token
+    logits, decode cache).  ``last_idx`` (B,) picks each row's last real
+    position when prompts are right-padded to a shared length."""
+    h, cache = _prefill_hidden(params, cfg, batch["tokens"], acts,
+                               cache_len, cache_dtype)
+    if last_idx is None:
+        last = h[:, -1]
+    else:
+        last = h[torch.arange(h.shape[0], device=h.device), last_idx.long()]
+    return lm_head_logits(last, _head(params)), cache
+
+
+def decode_step(params: dict, cfg: ModelCfg, cache: dict,
+                tokens: torch.Tensor, pos: torch.Tensor, acts: ActBundle
+                ) -> Tuple[torch.Tensor, dict]:
+    """One token for every sequence: tokens (B, 1), pos (B,) -> logits
+    (B, V); the cache is updated in place and returned."""
+    h = embed_lookup(params["embed"], tokens)
+    for i, st in enumerate(cfg.stages):
+        key = _stage_key(i, st)
+        acfg = _attn_cfg(cfg)
+        kv = cache[key]["kv"]
+        for j, p in enumerate(params["stages"][key]):
+            layer_kv = {n: kv[n][j] for n in ("k", "v", "pos")}
+            a, _ = decode_attention(p["attn"], acfg, rmsnorm(h, p["ln1"]),
+                                    layer_kv, pos, acts)
+            h = h + a
+            h = h + gated_mlp(p["mlp"], rmsnorm(h, p["ln2"]), acts,
+                              gate=cfg.gate)
+    h = rmsnorm(h, params["ln_f"])
+    return lm_head_logits(h, _head(params))[:, 0], cache

@@ -1,0 +1,101 @@
+"""Each CUDA kernel of the PyTorch port against its plain PyTorch version,
+on the card (they skip where there is none).  No JAX here, so the file runs
+on the machine with the card:
+
+  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import fused, ppa, ref, softmax_ppa  # noqa: E402
+from repro_torch.tables import BITS, NAFS, load_table  # noqa: E402
+
+TABLES = [(naf, bits) for naf in NAFS for bits in BITS]
+SOFTMAX_ATOL = 1e-6       # the reference's own kernel-vs-wrapper bound
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _float_inputs(tc, seed):
+    xs, xe = tc.interval
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.uniform(xs - 0.5 - xe, xe + 0.5, size=7 * 153),
+        rng.normal(0.0, 3.0, size=512),
+        [0.0, -0.0, xe, -xe, xe - 2.0 ** -9, 2.0 ** -9, -(2.0 ** -9)],
+    ]).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("naf,bits", TABLES)
+def test_cuda_int_kernel_on_card(naf, bits):
+    dev = _card()
+    tc = K.pack_table(load_table(naf, bits), dev)
+    span = tc.hi - tc.lo
+    x = torch.arange(tc.lo - span, tc.hi + span, device=dev,
+                     dtype=torch.int32)
+    assert torch.equal(ppa.ppa_eval_int(tc, x),
+                       ref.ppa_eval_ref(x, tc.starts, tc.coefs, tc.plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("naf,bits", TABLES)
+def test_cuda_fused_kernel_on_card(naf, bits, dtype):
+    dev = _card()
+    tc = K.pack_table(load_table(naf, bits), dev)
+    x = torch.from_numpy(_float_inputs(tc, 1)).to(dev, getattr(torch, dtype))
+    for gate in (False, True):
+        assert torch.equal(fused.ppa_fused_apply(tc, x, gate),
+                           fused.ppa_fused_plain(tc, x, gate))
+
+
+@pytest.mark.gpu
+def test_softmax_kernel_on_card():
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 4, (2, 2, 3, 7, 300)
+                                    ).astype(np.float32)).to(dev)
+    where = torch.from_numpy(rng.random((2, 1, 1, 7, 300)) < 0.6).to(dev)
+    where[0, 0, 0, 3] = False
+    cols = torch.from_numpy(rng.random((300, 2)) < 0.5).to(dev)[:, 0]
+    for w in (None, where, where[:, :, :, :1], cols):
+        got = softmax_ppa.softmax_ppa(x, tc, w)
+        want = softmax_ppa.softmax_ppa_plain(x, tc, w)
+        assert float((got - want).abs().max()) <= SOFTMAX_ATOL
+
+
+@pytest.mark.gpu
+def test_round_mults_plan_on_card():
+    dev = _card()
+    tab = load_table("exp2_frac", 16)
+    tc = K.pack_table(dataclasses.replace(tab, cfg=dataclasses.replace(
+        tab.cfg, round_mults=True, w_out=12)), dev)
+    x = torch.arange(-tc.hi, 2 * tc.hi, device=dev, dtype=torch.int32)
+    assert torch.equal(ppa.ppa_eval_int(tc, x),
+                       ref.ppa_eval_ref(x, tc.starts, tc.coefs, tc.plan))
+
+
+@pytest.mark.gpu
+def test_wrappers_count_launches_on_card():
+    dev = _card()
+    tc = K.pack_table(load_table("sigmoid_wide", 16), dev)
+    K.reset_counts()
+    x = torch.linspace(-9, 9, 1000, device=dev)
+    K.ppa_gate(tc, x, backend="cuda_fused")
+    K.ppa_apply(tc, x, backend="cuda_int")
+    c = K.read_counts()
+    assert c["ppa_fused"] == {"launches": 1, "plain": 0}
+    assert c["ppa_int"] == {"launches": 1}
+    assert c["ref"]["plain"] == 0
