@@ -7,19 +7,25 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. card     name and power limit (nvidia-smi) and torch's device name
 2. build    the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-            with nvcc for sm_90a, with the ``-Xptxas -v`` resource lines
+            with nvcc for sm_90a; every entry of ``ppa_fused`` and
+            ``softmax_ppa`` must report a 0-byte stack frame and no spills
+            in its ``-Xptxas -v`` lines
 3. kernels  each kernel against its plain PyTorch version on the card at
-            the main path's shapes: ``cuda_int`` and ``cuda_fused`` must be
-            exactly equal on all 12 shipped tables, the softmax within
-            1e-6; then each one's time (CUDA events), its plain version's
-            time, its bound and, where one PyTorch call computes the same
-            function, that call's time
+            the main path's shapes, decode and prefill: ``cuda_int`` and
+            ``cuda_fused`` must be exactly equal on all 12 shipped tables,
+            the softmax within 1e-6, also on rows of 1 to 4096 scores;
+            then each one's device time per launch at each shape (a CUDA
+            graph of back-to-back launches, timed with CUDA events), the
+            host's time per call, its plain version's time, its bound and,
+            where one PyTorch call computes the same function, that
+            call's time
 4. serve    full-width internlm2-1.8b (random weights from seed 0, bf16,
             act_impl="ppa"), ServeEngine(n_slots=4, cache_len=512), 8
             requests of 32-128 prompt tokens and 32 new tokens each; every
             request must finish at its length, the fused and softmax
             kernels must have launched at least layers x engine steps times
-            and no plain version may have run
+            and no plain version may have run; the launches are counted by
+            input shape (decode and prefill)
 5. serve_int the same config cut to 2 layers with act_backend="cuda_int"
 6. parity   full width, 2 layers, float32: prefill + 8 greedy decode steps
             through the kernels and through the plain versions, both on the
@@ -33,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +61,17 @@ ISSUE_OPS_PER_S = FP32_OPS_PER_S
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 512, 8, 32
 PREFILL_ROWS = 4 * 128          # B * T at the largest prefill bucket
 SOFTMAX_ATOL = 1e-6             # reference bound, tests/test_kernels.py
+# The shapes the served model launches the two activation kernels at:
+# the SwiGLU gate input (B, T, 8192) bf16 and the attention scores
+# (B, Hk, G, T, S) float32, at decode (B = slots, T = 1, S = cache) and at
+# the largest prefill bucket (4 x 128 tokens).
+FUSED_SHAPES = {"decode": (SERVE_SLOTS, 1, 8192),
+                "prefill": (PREFILL_ROWS, 8192)}
+SOFTMAX_SHAPES = {"decode": (SERVE_SLOTS, 8, 2, 1, SERVE_CACHE_LEN),
+                  "prefill": (4, 8, 2, 128, 128)}
+# Row lengths the softmax is held to its plain version at: both layouts of
+# the warp-per-row path and the block-per-row path beyond 2048.
+SOFTMAX_ROW_LENGTHS = (1, 31, 33, 512, 1024, 2048, 4096)
 
 
 def log(msg: str) -> None:
@@ -85,13 +102,48 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def datapath_ops(num_segments: int, order: int, round_mults: bool) -> int:
-    """int32 operations of select + Horner for one element: a binary search
-    (compare, select, add, shift per step) and the Horner chain (multiply
-    and shift per stage, two aligning shifts and an add per concat adder
-    and at the intercept, the final shift, a rounder add per stage)."""
-    steps = math.ceil(math.log2(num_segments + 1))
-    return (4 * steps + 2 * order + 3 * (order - 1) + 4
+def time_launch(fn, iters: int = 50, warmup: int = 5, replays: int = 4):
+    """(device ms per call, host us per call) of a kernel wrapper.  The
+    device time replays ``iters`` back-to-back calls captured in one CUDA
+    graph, so it leaves out the host's launch cost; the host time is that
+    of eager calls without a synchronise, the least of 5 batches."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    batch = max(iters // 5, 1)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        host.append((time.perf_counter() - t0) / batch)
+        torch.cuda.synchronize()
+    host_us = min(host) * 1e6
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays), host_us
+
+
+def datapath_ops(order: int, round_mults: bool) -> int:
+    """int32 operations of select + Horner for one element: the least any
+    select needs (one index computation and one load), then the Horner
+    chain (multiply and shift per stage, two aligning shifts and an add per
+    concat adder and at the intercept, the final shift, a rounder add per
+    stage).  The segment count and the select algorithm do not enter: a
+    shorter search must not lower its own bound."""
+    return (2 + 2 * order + 3 * (order - 1) + 4
             + (order if round_mults else 0))
 
 
@@ -116,18 +168,238 @@ def bound(nbytes: float, int_ops: float, fp_ops: float = 0.0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def table_bytes(num_segments: int, order: int) -> int:
+    """The table's starts and coefficient rows, int32."""
+    return 4 * num_segments * (order + 2)
+
+
+def int_bound(n: int, num_segments: int, order: int, round_mults: bool):
+    """ppa_int on n int32 elements: 4 B in and 4 B out each."""
+    return bound(8 * n + table_bytes(num_segments, order),
+                 n * datapath_ops(order, round_mults))
+
+
+def fused_bound(n: int, itemsize: int, num_segments: int, order: int,
+                round_mults: bool):
+    """ppa_fused on n elements of ``itemsize`` bytes, read and written."""
+    return bound(2 * itemsize * n + table_bytes(num_segments, order),
+                 n * (datapath_ops(order, round_mults) + FUSED_INT_OPS),
+                 n * FUSED_FP_OPS)
+
+
+def softmax_bound(n: int, mask_bytes: int, num_segments: int, order: int,
+                  round_mults: bool):
+    """softmax_ppa on n float32 scores, read and written, and the mask at
+    its unexpanded size."""
+    return bound(8 * n + mask_bytes + table_bytes(num_segments, order),
+                 n * (datapath_ops(order, round_mults) + SOFTMAX_INT_OPS),
+                 n * SOFTMAX_FP_OPS)
+
+
 # ---------------------------------------------------------------- phases
+def ptxas_entries(text: str):
+    """{entry: {"stack", "spill_stores", "spill_loads", "registers"}} for
+    every kernel entry in the output of ``nvcc -Xptxas -v``."""
+    entries, props, cur = [], {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append(m.group(1))
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            props.setdefault(cur, {}).update(
+                stack=int(m[1]), spill_stores=int(m[2]),
+                spill_loads=int(m[3]))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            props.setdefault(cur, {})["registers"] = int(m[1])
+    return {e: props.get(e, {}) for e in entries}
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all()
     log(f"[build] {len(build.KERNELS)} kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f}s ({' '.join(build.NVCC_FLAGS)})")
-    for name in build.KERNELS:
-        for line in build.ptxas_log(name).splitlines():
-            if any(k in line for k in ("Compiling entry", "Used",
-                                       "bytes stack frame", "already built")):
-                log(f"[build] {name}: {line.strip()}")
+    for line in build.ptxas_log("ppa_int").splitlines():
+        if any(k in line for k in ("Compiling entry", "Used",
+                                   "bytes stack frame", "already built")):
+            log(f"[build] ppa_int: {line.strip()}")
+    bad = []
+    for name in ("ppa_fused", "softmax_ppa"):
+        text = build.ptxas_log(name)
+        if "already built" in text:
+            log(f"[build] {name}: built before this run, so no ptxas report "
+                "to check (a fresh checkout builds and checks it)")
+            continue
+        entries = ptxas_entries(text)
+        if not entries:
+            raise AssertionError(f"{name}: no kernel entry in the ptxas "
+                                 f"report:\n{text}")
+        for entry, pr in entries.items():
+            if (pr.get("stack", -1) != 0 or pr.get("spill_stores", -1) != 0
+                    or pr.get("spill_loads", -1) != 0):
+                bad.append((name, entry, pr))
+        regs = [pr.get("registers", 0) for pr in entries.values()]
+        log(f"[build] {name}: {len(entries)} entries, stack frame max "
+            f"{max(pr.get('stack', -1) for pr in entries.values())} bytes, "
+            f"spill stores max "
+            f"{max(pr.get('spill_stores', -1) for pr in entries.values())} "
+            f"bytes, spill loads max "
+            f"{max(pr.get('spill_loads', -1) for pr in entries.values())} "
+            f"bytes, registers {min(regs)}-{max(regs)}")
+    if bad:
+        raise AssertionError(f"entries with a stack frame or spills: {bad}")
+
+
+def _check_fused(torch, gen, dev, fused, tcs):
+    """cuda_fused == plain, bit for bit, on every table x dtype x gate at
+    the decode and prefill shapes, a size that is not a multiple of 8 and
+    an input that is not 16-byte aligned."""
+    checks = 0
+    for (naf, bits), tc in tcs.items():
+        sigma = tc.interval[1]
+        for dt in (torch.float32, torch.bfloat16):
+            def randn(*shape):
+                return (torch.randn(shape, generator=gen, device=dev)
+                        * sigma).to(dt)
+            inputs = {name: randn(*shape)
+                      for name, shape in FUSED_SHAPES.items()}
+            inputs["(3, 1001)"] = randn(3, 1001)
+            inputs["unaligned (8191,)"] = randn(8192)[1:]
+            for label, x in inputs.items():
+                for gate in (False, True):
+                    got = fused.ppa_fused_apply(tc, x, gate)
+                    want = fused.ppa_fused_plain(tc, x, gate)
+                    torch.cuda.synchronize()
+                    checks += 1
+                    if not torch.equal(got, want):
+                        d = (got.float() - want.float()).abs()
+                        raise AssertionError(
+                            f"cuda_fused != plain for {naf}-{bits} {dt} "
+                            f"{label} gate={gate}: {int((d > 0).sum())} "
+                            f"elements, max |diff| {float(d.max())}")
+    log(f"[kernels] cuda_fused == plain (exact) on {len(tcs)} tables x "
+        "{f32,bf16} x {ungated,gated} at decode "
+        f"{FUSED_SHAPES['decode']}, prefill {FUSED_SHAPES['prefill']}, "
+        f"(3, 1001) and an unaligned (8191,): {checks} checks, "
+        "x ~ N(0, interval end)")
+
+
+def attention_mask(torch, dev, shape):
+    """The (B, 1, 1, T, S) validity mask of attention at ``shape``: causal,
+    the last quarter of the ring still empty at decode, and one row all
+    masked."""
+    b, t, s = shape[0], shape[-2], shape[-1]
+    qp = torch.arange(t, device=dev)[:, None] + (s - t)
+    kp = torch.arange(s, device=dev)[None, :]
+    if t == 1:
+        qp = qp - s // 4
+    valid = (kp <= qp)[None, None, None].expand(b, 1, 1, t, s).clone()
+    valid[0, 0, 0, 0, :] = False
+    return valid
+
+
+def _check_softmax(torch, gen, dev, softmax_ppa, e2):
+    """The softmax kernel within SOFTMAX_ATOL of the plain version, masked
+    and not, at the main path's shapes and row lengths; an all-masked row
+    exactly 0.  Returns the largest difference."""
+    cases = []                  # (label, x, where, all-masked row or None)
+    for name, shape in SOFTMAX_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device=dev) * 4.0
+        valid = attention_mask(torch, dev, shape)
+        cases += [(name, x, None, None),
+                  (f"{name} masked", x, valid, (0, 0, 0, 0))]
+    x, valid = cases[3][1], cases[3][2]
+    cases.append(("prefill, column stride 128", x,
+                  valid.transpose(-1, -2), None))
+    for n in SOFTMAX_ROW_LENGTHS:
+        x = torch.randn((16, n), generator=gen, device=dev) * 4.0
+        where = torch.rand((16, n), generator=gen, device=dev) < 0.7
+        where[3] = False
+        cases += [(f"rows of {n}", x, None, None),
+                  (f"rows of {n} masked", x, where, (3,))]
+    x = torch.randn(16 * 512 + 1, generator=gen, device=dev)[1:]
+    cases.append(("rows of 512, unaligned", x.view(16, 512), None, None))
+    err = 0.0
+    for label, x, where, dead in cases:
+        got = softmax_ppa.softmax_ppa(x, e2, where)
+        want = softmax_ppa.softmax_ppa_plain(x, e2, where)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        if not d <= SOFTMAX_ATOL:
+            raise AssertionError(f"softmax kernel vs plain, {label} "
+                                 f"{tuple(x.shape)}: {d}")
+        if dead is not None and float(got[dead].abs().max()) != 0.0:
+            raise AssertionError(f"{label}: all-masked row is not all zero")
+        err = max(err, d)
+    log(f"[kernels] softmax kernel vs plain: max |diff| {err:.3e} <= "
+        f"{SOFTMAX_ATOL} on {len(cases)} cases (decode {SOFTMAX_SHAPES['decode']}"
+        f" and prefill {SOFTMAX_SHAPES['prefill']}, with and without the "
+        f"attention mask, a column-strided mask, rows of "
+        f"{', '.join(map(str, SOFTMAX_ROW_LENGTHS))} masked and not, an "
+        "unaligned input); all-masked rows exactly 0")
+    return err
+
+
+def activation_kernel_times(torch, dev, gen, fused, softmax_ppa, sig, e2,
+                            plain: bool = True):
+    """{kernel: {"decode" | "prefill": row}}: the fused kernel (bf16 gated,
+    table ``sig``) and the softmax kernel (attention mask, table ``e2``) of
+    the wrapper modules given, at FUSED_SHAPES and SOFTMAX_SHAPES.  Each is
+    first held to its plain version at that shape, then timed
+    (``time_launch``) beside its bound; with ``plain``, also the plain
+    version and a PyTorch call that computes another function (context)."""
+    def table_args(tc):
+        return tc.num_segments, tc.plan.order, tc.plan.round_mults
+
+    out = {"ppa_fused": {}, "softmax_ppa": {}}
+    for label, shape in FUSED_SHAPES.items():
+        xb = (torch.randn(shape, generator=gen, device=dev) * 3.0
+              ).to(torch.bfloat16)
+        if not torch.equal(fused.ppa_fused_apply(sig, xb, True),
+                           fused.ppa_fused_plain(sig, xb, True)):
+            raise AssertionError(f"ppa_fused != plain at {shape}")
+        ms, host = time_launch(lambda: fused.ppa_fused_apply(sig, xb, True))
+        b_ms, b_by = fused_bound(xb.numel(), 2, *table_args(sig))
+        row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        if plain:
+            row["plain_ms"] = time_ms(
+                lambda: fused.ppa_fused_plain(sig, xb, True), iters=10)
+            row["context_silu_ms"], _ = time_launch(
+                lambda: torch.nn.functional.silu(xb))
+        out["ppa_fused"][label] = row
+    for label, shape in SOFTMAX_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device=dev) * 4.0
+        where = attention_mask(torch, dev, shape)
+        err = float((softmax_ppa.softmax_ppa(x, e2, where)
+                     - softmax_ppa.softmax_ppa_plain(x, e2, where)
+                     ).abs().max())
+        if not err <= SOFTMAX_ATOL:
+            raise AssertionError(f"softmax_ppa vs plain at {shape}: {err}")
+        ms, host = time_launch(lambda: softmax_ppa.softmax_ppa(x, e2, where))
+        b_ms, b_by = softmax_bound(x.numel(), where.numel(), *table_args(e2))
+        row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, masked=True,
+                   max_abs_err=err)
+        if plain:
+            mask = where.expand(x.shape)
+            row["plain_ms"] = time_ms(
+                lambda: softmax_ppa.softmax_ppa_plain(x, e2, where), iters=10)
+            row["context_masked_softmax_ms"], _ = time_launch(
+                lambda: torch.softmax(x.masked_fill(~mask, float("-inf")),
+                                      dim=-1))
+        out["softmax_ppa"][label] = row
+    return out
 
 
 def phase_kernels(torch, dev):
@@ -166,126 +438,62 @@ def phase_kernels(torch, dev):
     log(f"[kernels] cuda_int == plain (exact) on {len(tcs)} tables and a "
         "round_mults plan, whole grid + out-of-interval + negative inputs")
 
-    # ---- cuda_fused: gated/ungated, f32/bf16, 3-sigma spread
-    for (naf, bits), tc in tcs.items():
-        sigma = tc.interval[1]
-        for dt in (torch.float32, torch.bfloat16):
-            x = (torch.randn((PREFILL_ROWS, 8192), generator=gen, device=dev)
-                 * sigma).to(dt)
-            for gate in (False, True):
-                got = fused.ppa_fused_apply(tc, x, gate)
-                want = fused.ppa_fused_plain(tc, x, gate)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    d = (got.float() - want.float()).abs()
-                    raise AssertionError(
-                        f"cuda_fused != plain for {naf}-{bits} {dt} "
-                        f"gate={gate}: {int((d > 0).sum())} elements, "
-                        f"max |diff| {float(d.max())}")
-    log(f"[kernels] cuda_fused == plain (exact) on {len(tcs)} tables x "
-        "{f32,bf16} x {ungated,gated}, x ~ N(0, interval end) on "
-        f"({PREFILL_ROWS}, 8192)")
-
-    # ---- softmax: prefill and decode shapes, with and without the mask
+    _check_fused(torch, gen, dev, fused, tcs)
     e2 = tcs[("exp2_frac", 16)]
-    sm_err = 0.0
-    cases = []
-    for shape in ((4, 8, 2, 128, 128), (4, 8, 2, 1, SERVE_CACHE_LEN),
-                  (4, 8, 2, 1, 1024)):
-        x = torch.randn(shape, generator=gen, device=dev) * 4.0
-        t, s = shape[-2], shape[-1]
-        qp = torch.arange(t, device=dev)[:, None] + (s - t)
-        kp = torch.arange(s, device=dev)[None, :]
-        if t == 1:                  # decode: the last quarter of the ring
-            qp = qp - s // 4        # is still empty (position -1)
-        valid = (kp <= qp)[None, None, None].expand(shape[0], 1, 1, t, s)
-        valid = valid.clone()
-        valid[0, 0, 0, 0, :] = False           # one all-masked row
-        cases += [(x, None), (x, valid)]
-    # a mask read through a column stride other than 1
-    strided = cases[1][1].transpose(-1, -2)
-    for x, where in cases + [(cases[0][0], strided)]:
-        got = softmax_ppa.softmax_ppa(x, e2, where)
-        want = softmax_ppa.softmax_ppa_plain(x, e2, where)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not err <= SOFTMAX_ATOL:
-            raise AssertionError(f"softmax kernel vs plain {tuple(x.shape)} "
-                                 f"mask={where is not None}: {err}")
-        if (where is not None and where is not strided
-                and float(got[0, 0, 0, 0].abs().max()) != 0.0):
-            raise AssertionError("all-masked row is not all zero")
-        sm_err = max(sm_err, err)
-    log(f"[kernels] softmax kernel vs plain: max |diff| {sm_err:.3e} "
-        f"<= {SOFTMAX_ATOL} on {len(cases) + 1} cases (prefill/decode "
-        "shapes, with/without mask, all-masked row, strided mask)")
+    sm_err = _check_softmax(torch, gen, dev, softmax_ppa, e2)
 
     # ---- timings at main-path shapes
-    rows = []
     sig = tcs[("sigmoid_wide", 16)]
     plan = sig.plan
     n = PREFILL_ROWS * 8192
-
     xq = torch.randint(sig.lo, sig.hi, (PREFILL_ROWS, 8192), generator=gen,
                        device=dev, dtype=torch.int32)
-    ms = time_ms(lambda: ppa.ppa_eval_int(sig, xq))
+    ms, host = time_launch(lambda: ppa.ppa_eval_int(sig, xq))
     plain = time_ms(lambda: ref.ppa_eval_ref(xq, sig.starts, sig.coefs,
                                              plan), iters=10)
-    lib = time_ms(lambda: sig.val_lut[(xq - sig.lo).long()], iters=20)
-    table_bytes = sig.starts.numel() * 4 + sig.coefs.numel() * 4
-    dp_ops = datapath_ops(sig.num_segments, plan.order, plan.round_mults)
-    b_ms, b_by = bound(n * 8 + table_bytes, n * dp_ops)
-    rows.append(dict(
+    lib, _ = time_launch(lambda: sig.val_lut[(xq - sig.lo).long()])
+    b_ms, b_by = int_bound(n, sig.num_segments, plan.order,
+                           plan.round_mults)
+    int_row = dict(
         name="ppa_int", route="cuda",
         source="src/repro_torch/kernels/csrc/ppa_int.cu",
         replaces="src/repro/kernels/ppa.py:77", max_abs_err=0.0, ms=ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        shape=[PREFILL_ROWS, 8192], table="sigmoid_wide-16"))
+        shape=[PREFILL_ROWS, 8192], table="sigmoid_wide-16",
+        shapes={"prefill": dict(shape=[PREFILL_ROWS, 8192], ms=ms,
+                                host_us=host, plain_ms=plain, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib)})
 
-    xb = (torch.randn((PREFILL_ROWS, 8192), generator=gen, device=dev)
-          * 3.0).to(torch.bfloat16)
-    ms = time_ms(lambda: fused.ppa_fused_apply(sig, xb, True))
-    plain = time_ms(lambda: fused.ppa_fused_plain(sig, xb, True), iters=10)
-    ctx = time_ms(lambda: torch.nn.functional.silu(xb))
-    b_ms, b_by = bound(n * 4 + table_bytes, n * (dp_ops + FUSED_INT_OPS),
-                       n * FUSED_FP_OPS)
-    rows.append(dict(
+    times = activation_kernel_times(torch, dev, gen, fused, softmax_ppa,
+                                    sig, e2)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    fused_row = dict(
         name="ppa_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/ppa_fused.cu",
-        replaces="src/repro/kernels/fused.py:40", max_abs_err=0.0, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=[PREFILL_ROWS, 8192], dtype="bfloat16", gate=True,
-        table="sigmoid_wide-16", context_silu_ms=ctx))
-
-    x, where = cases[1]                       # prefill shape, masked
-    mask = where.expand(x.shape)
-    ms = time_ms(lambda: softmax_ppa.softmax_ppa(x, e2, where))
-    plain = time_ms(lambda: softmax_ppa.softmax_ppa_plain(x, e2, where),
-                    iters=10)
-    ctx = time_ms(lambda: torch.softmax(
-        x.masked_fill(~mask, float("-inf")), dim=-1))
-    m = x.numel()                 # scores in and out, the unexpanded mask
-    b_ms, b_by = bound(
-        m * 8 + where.numel() + e2.starts.numel() * 4 + e2.coefs.numel() * 4,
-        m * (datapath_ops(e2.num_segments, e2.plan.order,
-                          e2.plan.round_mults) + SOFTMAX_INT_OPS),
-        m * SOFTMAX_FP_OPS)
-    rows.append(dict(
+        replaces="src/repro/kernels/fused.py:40", max_abs_err=0.0,
+        **{k: times["ppa_fused"]["prefill"][k] for k in keys},
+        dtype="bfloat16", gate=True, table="sigmoid_wide-16",
+        shapes=times["ppa_fused"])
+    sm_row = dict(
         name="softmax_ppa", route="cuda",
         source="src/repro_torch/kernels/csrc/softmax_ppa.cu",
         replaces="src/repro/kernels/softmax_ppa.py:44", max_abs_err=sm_err,
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, shape=list(x.shape), masked=True,
-        context_masked_softmax_ms=ctx))
+        **{k: times["softmax_ppa"]["prefill"][k] for k in keys},
+        masked=True, table="exp2_frac-16", shapes=times["softmax_ppa"])
+
+    rows = [int_row, fused_row, sm_row]
     for r in rows:
-        log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, library "
-            f"{'none' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
-            f") at {r['shape']}")
-    log(f"[kernels] context, not the same function: F.silu "
-        f"{rows[1]['context_silu_ms']:.4f} ms, masked torch.softmax "
-        f"{rows[2]['context_masked_softmax_ms']:.4f} ms")
+        for label, t in r["shapes"].items():
+            ctx = t.get("context_silu_ms", t.get("context_masked_softmax_ms"))
+            log(f"[kernels] {r['name']} {label} {t['shape']}: "
+                f"{t['ms']:.5f} ms on the device (plain {t['plain_ms']:.5f}"
+                f" ms, bound {t['bound_ms']:.7f} ms by {t['bound_by']}, "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it; library "
+                + ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.5f} ms")
+                + ("" if ctx is None else
+                   f"; context, not the same function: {ctx:.5f} ms")
+                + f"), host {t['host_us']:.1f} us per call")
     return rows
 
 
@@ -337,7 +545,7 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens):
 
 def phase_serve(torch, dev, card):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import read_counts
+    from repro_torch.kernels import read_counts, read_shape_counts
 
     cfg = get_config("internlm2-1.8b").replace(
         act_impl="ppa", compute_dtype="bfloat16")
@@ -367,11 +575,22 @@ def phase_serve(torch, dev, card):
         f"(step time minus median decode); max_memory_allocated "
         f"{mem / 2**30:.2f} GiB; prefill shapes {sorted(eng.prefill_shapes)}"
         f"; card {card}")
+    by_shape = read_shape_counts()
+    out = {}
+    for k, decode_shape in (("ppa_fused", FUSED_SHAPES["decode"]),
+                            ("softmax_ppa", SOFTMAX_SHAPES["decode"])):
+        at_decode = by_shape[k].get(decode_shape, 0)
+        out[k] = {"total": counts[k]["launches"], "decode": at_decode,
+                  "prefill": counts[k]["launches"] - at_decode}
     log(f"[serve] launches fused={counts['ppa_fused']['launches']} softmax="
         f"{counts['softmax_ppa']['launches']} (layers x steps = {need}); "
-        f"plain calls {plain}")
-    return {"ppa_fused": counts["ppa_fused"]["launches"],
-            "softmax_ppa": counts["softmax_ppa"]["launches"]}
+        f"by shape {by_shape}; plain calls {plain}")
+    log(f"[serve] launches at the decode shapes fused "
+        f"{out['ppa_fused']['decode']} {FUSED_SHAPES['decode']} and softmax "
+        f"{out['softmax_ppa']['decode']} {SOFTMAX_SHAPES['decode']}; in "
+        f"prefill groups fused {out['ppa_fused']['prefill']} and softmax "
+        f"{out['softmax_ppa']['prefill']}")
+    return out
 
 
 def phase_serve_int(torch, dev):
@@ -469,13 +688,17 @@ def main() -> int:
     if not failed:
         rows = run("kernels", phase_kernels, torch, dev) or []
         launches.update(run("serve", phase_serve, torch, dev, card) or {})
-        launches["ppa_int"] = run("serve_int", phase_serve_int, torch, dev)
+        launches["ppa_int"] = {
+            "total": run("serve_int", phase_serve_int, torch, dev)}
         run("parity", phase_parity, torch, dev)
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["name"]]["total"]
+        for label, t in r["shapes"].items():
+            if label in launches[r["name"]]:
+                t["launches"] = launches[r["name"]][label]
         r["path"] = ("serve internlm2-1.8b 2L cuda_int"
                      if r["name"] == "ppa_int"
                      else "serve internlm2-1.8b 24L cuda_fused")

@@ -12,17 +12,28 @@ from .ops import (Backend, TableConsts, available_backends, check_int32,
 __all__ = ["Backend", "TableConsts", "available_backends", "check_int32",
            "get_backend", "make_ppa_fn", "pack_table", "plan_ints",
            "ppa_act", "ppa_apply", "ppa_gate", "ppa_gate_act", "ppa_softmax",
-           "read_counts", "reset_counts"]
+           "read_counts", "read_shape_counts", "reset_counts"]
 
 _COUNTS = {"ppa_int": ppa.counts, "ppa_fused": fused.counts,
            "softmax_ppa": softmax_ppa.counts, "ref": ref.counts}
+_SHAPE_COUNTS = {"ppa_fused": fused.shape_counts,
+                 "softmax_ppa": softmax_ppa.shape_counts}
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count and plain-call count to 0."""
+    """Set every kernel's launch count and plain-call count to 0, and
+    forget the launches by shape."""
     for c in _COUNTS.values():
         for k in c:
             c[k] = 0
+    for c in _SHAPE_COUNTS.values():
+        c.clear()
+
+
+def read_shape_counts() -> Dict[str, Dict[tuple, int]]:
+    """{kernel: {input shape: launches}} for the fused and softmax
+    kernels."""
+    return {name: dict(c) for name, c in _SHAPE_COUNTS.items()}
 
 
 def read_counts() -> Dict[str, Dict[str, int]]:

@@ -8,23 +8,40 @@
 //   identity) -> symmetry restore (odd / sigmoid / minus_x) -> optional
 //   x * T(x) gate.
 // The order of operations and the cast points (x -> float32 ... ->
-// x.dtype) are those of the plain version, kernels/ops.py::_apply_f32, and
-// every float operation is an explicit round-to-nearest intrinsic
+// x.dtype) are those of the plain version, kernels/fused.py::condition_f32,
+// and every float operation is an explicit round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn, ...), built with -fmad=false: nothing is
-// contracted into an FMA, so the result is bit-identical.  A bf16 input is
-// widened on load and the float32 result rounded to nearest-even on store
-// (__float2bfloat16_rn), as torch's .to(bfloat16) does.
+// contracted into an FMA, so the result is bit-identical.  The division by
+// 2^w_out is a product with the exact 2^-w_out, which rounds the same way.
+// A bf16 input is widened on load and the float32 result rounded to
+// nearest-even on store (__floats2bfloat162_rn), as torch's .to(bfloat16)
+// does.
 //
-// What bounds it on an H100: on the main path it is the SwiGLU silu gate on
-// (B, T, 8192) bf16 at prefill and decode, 2 B read + 2 B written per
-// element, against a binary search over 461 starts plus order-2 Horner
-// (about 54 int32 operations with the clamps and selects) and about 12
-// float operations.  An H100 SXM has 64 int32 lanes per SM, 16.75 T op/s
-// in all, against 3.35 TB/s of device memory: the int32 operations take
-// about 2.7x as long as the 4 B, so operations set the bound.  Design:
-// as ppa_int.cu, a capped grid-stride walk with the table staged once per
-// block in shared memory; moving 2 B instead of 4 B per element in bf16
-// halves the bytes of the float32 reference kernel.
+// What bounds it on an H100: on the main path it is the SwiGLU silu gate
+// on (B, T, 8192) bf16, (4, 1, 8192) at decode and (512, 8192) at the
+// largest prefill bucket.  Per element it moves 2 B in and 2 B out, and
+// needs one select (an index and a load), the order-2 Horner chain and
+// the conditioning: about 20 int32 and 12 float32 operations.  At 3.35
+// TB/s and 16.75 T int32 op/s the two take about as long, so the kernel is
+// bound by bytes and int32 issue together.  Design:
+// * Select: the clipped input indexes the table's idx_lut (pack_table's
+//   segment of every input in [lo, hi), at most 4096 entries for the
+//   shipped tables), and the coefficient row it names is read: two
+//   shared-memory loads.  Each block stages the idx_lut and the rows once
+//   (8 KB + 5.5 KB for sigmoid_wide-16), and issues its first inputs'
+//   load before that, so both arrive in one round trip.  (Read through L1
+//   instead, with no staging, the two dependent gathers each went to L2 on
+//   a cold SM, and the kernel was slower than the parent's at decode; see
+//   PERF.md.)
+// * The kernel is templated on the order, the symmetry and the gate, so
+//   the plan's arrays are indexed at compile time (no stack frame) and the
+//   unused branches are gone.
+// * Each thread loads and stores 16 bytes (8 bf16 or 4 float32 values);
+//   the wrapper gives the count of such vectors, and the elements after
+//   them (or all of them, for an input not 16-byte aligned) take one
+//   thread each.  The grid is sized to that work up to 4 blocks per SM,
+//   beyond which blocks walk the input, so a block's staged table serves
+//   many vectors.
 #include <cuda_bf16.h>
 
 #include "ppa_body.cuh"
@@ -35,101 +52,247 @@
 #define SYM_SIGMOID 2
 #define SYM_MINUS_X 3
 
-struct FusedStatics {
+// saturation of inputs at or beyond hi
+#define SAT_NONE 0
+#define SAT_CONST 1
+#define SAT_IDENTITY 2
+
+#define FUSED_THREADS 128
+#define FUSED_BLOCKS_PER_SM 4
+
+struct FusedArgs {
+  const int* idx_lut;  // (hi - lo,) segment of each input in [lo, hi)
+  const int* coefs;    // (S, order + 1): a_1 .. a_n, b
+  int num_coefs;
   int lo, hi;
-  int symmetry;
-  int has_sat_hi;
-  int sat_identity;
-  int gate;
+  int sat;
   float sat_hi;
-  float scale_in;   // 2^w_in
-  float scale_out;  // 2^w_out
+  float scale_in;       // 2^w_in
+  float inv_scale_out;  // 2^-w_out
 };
 
-__device__ __forceinline__ float load_f32(const float* p, long long i) {
-  return p[i];
+// Quantize the range-reduced input xf to the table's grid and clip it to
+// [lo, hi - 1]; oob_hi flags the inputs at or beyond hi.
+__device__ __forceinline__ int fused_quantize(const FusedArgs& a, float xf,
+                                              bool& oob_hi) {
+  // round down to int32, saturating (cvt.rmi.s32.f32): floor, then the
+  // plain version's truncating conversion, in one step
+  int xi = __float2int_rd(__fadd_rn(__fmul_rn(fabsf(xf), a.scale_in), 0.5f));
+  if (xf < 0.0f) xi = -xi;
+  oob_hi = xi >= a.hi;
+  return min(max(xi, a.lo), a.hi - 1);
 }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
+
+// The datapath's output yi back to float: dequantize, saturate, restore
+// the symmetry, gate.
+template <int SYM, bool GATE>
+__device__ __forceinline__ float fused_finish(const FusedArgs& a, int yi,
+                                              float x0, float xf,
+                                              bool oob_hi) {
+  float v = __fmul_rn((float)yi, a.inv_scale_out);
+  if (a.sat == SAT_IDENTITY) {
+    if (oob_hi) v = xf;
+  } else if (a.sat == SAT_CONST) {
+    if (oob_hi) v = a.sat_hi;
+  }
+  if (SYM != SYM_NONE && x0 < 0.0f) {
+    if (SYM == SYM_ODD) v = -v;
+    else if (SYM == SYM_SIGMOID) v = __fsub_rn(1.0f, v);
+    else v = __fsub_rn(v, xf);
+  }
+  if (GATE) v = __fmul_rn(x0, v);
+  return v;
 }
-__device__ __forceinline__ void store_f32(float* p, long long i, float v) {
-  p[i] = v;
+
+// One element; s_idx and s_coefs are the table staged in shared memory.
+template <int ORDER, int SYM, bool GATE>
+__device__ __forceinline__ float fused_one(const FusedArgs& a,
+                                           const PpaPlan& p, const int* s_idx,
+                                           const int* s_coefs, float x0) {
+  const float xf = SYM != SYM_NONE ? fabsf(x0) : x0;
+  bool oob_hi;
+  const int xi = fused_quantize(a, xf, oob_hi);
+  const int* row = s_coefs + s_idx[xi - a.lo] * (ORDER + 1);
+  return fused_finish<SYM, GATE>(a, ppa_horner_row<ORDER>(p, row, xi), x0,
+                                 xf, oob_hi);
 }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, long long i,
-                                          float v) {
-  p[i] = __float2bfloat16_rn(v);
+
+// 16 bytes of T as float32 values, and back
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  static __device__ __forceinline__ float widen(float v) { return v; }
+  static __device__ __forceinline__ float narrow(float v) { return v; }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // a bf16 is the upper half of the float32 with the same value
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&v)[8]) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[8]) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = (unsigned)__bfloat16_as_ushort(h.x) |
+             ((unsigned)__bfloat16_as_ushort(h.y) << 16);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ float widen(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 narrow(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+// A grid-stride walk: thread g takes the 16-byte vectors g, g + stride, ...
+// below n_vec, then the elements n_vec * N + g, ... below n.  The first
+// vector's load is issued before the table is staged, so both are in
+// flight together.
+template <typename T, int ORDER, int SYM, bool GATE>
+__global__ void __launch_bounds__(FUSED_THREADS)
+    ppa_fused_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
+                     long long n_vec, FusedArgs a, PpaPlan p) {
+  constexpr int N = Vec16<T>::N;
+  extern __shared__ int4 smem4[];  // 16-byte aligned
+  int* smem = reinterpret_cast<int*>(smem4);
+  const int span = a.hi - a.lo;
+  const int* s_idx = smem;
+  const int* s_coefs = smem + ppa_lut_coef_offset(span);
+  const long long g = (long long)blockIdx.x * FUSED_THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * FUSED_THREADS;
+  float v[N];
+  if (g < n_vec) Vec16<T>::load(x + g * N, v);
+  // sigmoid_wide-16's 13.5 KB in one round of 8 loads a thread
+  ppa_stage_lut<8>(a.idx_lut, span, a.coefs, a.num_coefs, smem);
+  for (long long t = g; t < n_vec; t += stride) {
+    // the next vector loads while this one is computed
+    const bool more = t + stride < n_vec;
+    float next[N];
+    if (more) Vec16<T>::load(x + (t + stride) * N, next);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      v[i] = fused_one<ORDER, SYM, GATE>(a, p, s_idx, s_coefs, v[i]);
+    Vec16<T>::store(y + t * N, v);
+    if (more) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = next[i];
+    }
+  }
+  for (long long i = n_vec * N + g; i < n; i += stride)
+    y[i] = Vec16<T>::narrow(fused_one<ORDER, SYM, GATE>(
+        a, p, s_idx, s_coefs, Vec16<T>::widen(x[i])));
+}
+
+struct FusedLaunch {
+  const void* x;
+  void* y;
+  long long n, n_vec;
+  FusedArgs a;
+  PpaPlan p;
+  cudaStream_t stream;
+};
+
+// One thread per vector (or per element past the vectors), in blocks of
+// FUSED_THREADS, at most FUSED_BLOCKS_PER_SM blocks per SM: a small input
+// (decode) gets a grid sized to it, a large one (prefill) walks with each
+// block's table staged once for many vectors.
+template <typename T, int ORDER, int SYM>
+static int launch_gate(const FusedLaunch& L, int gate) {
+  const long long tail = L.n - L.n_vec * Vec16<T>::N;
+  const long long work = L.n_vec > tail ? L.n_vec : tail;
+  const long long cap = (long long)ppa_sm_count() * FUSED_BLOCKS_PER_SM;
+  const long long want = (work + FUSED_THREADS - 1) / FUSED_THREADS;
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  const size_t smem = ppa_lut_smem_bytes(L.a.hi - L.a.lo, L.a.num_coefs);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const T* x = (const T*)L.x;
+  T* y = (T*)L.y;
+  if (gate)
+    ppa_fused_kernel<T, ORDER, SYM, true>
+        <<<blocks, FUSED_THREADS, smem, L.stream>>>(x, y, L.n, L.n_vec, L.a,
+                                                    L.p);
+  else
+    ppa_fused_kernel<T, ORDER, SYM, false>
+        <<<blocks, FUSED_THREADS, smem, L.stream>>>(x, y, L.n, L.n_vec, L.a,
+                                                    L.p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int ORDER>
+static int launch_sym(const FusedLaunch& L, int sym, int gate) {
+  switch (sym) {
+    case SYM_NONE: return launch_gate<T, ORDER, SYM_NONE>(L, gate);
+    case SYM_ODD: return launch_gate<T, ORDER, SYM_ODD>(L, gate);
+    case SYM_SIGMOID: return launch_gate<T, ORDER, SYM_SIGMOID>(L, gate);
+    case SYM_MINUS_X: return launch_gate<T, ORDER, SYM_MINUS_X>(L, gate);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-__global__ void ppa_fused_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                 long long n, const int* __restrict__ starts,
-                                 const int* __restrict__ coefs,
-                                 int num_segments, PpaPlan plan,
-                                 FusedStatics st) {
-  extern __shared__ int smem[];
-  int* s_starts = smem;
-  int* s_coefs = smem + num_segments;
-  ppa_stage_table(starts, coefs, num_segments, plan.order, s_starts, s_coefs);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float x0 = load_f32(x, i);
-    const float xf = st.symmetry != SYM_NONE ? fabsf(x0) : x0;
-    // float -> int32 conversion truncates and saturates (cvt.rzi.s32.f32)
-    int xi = (int)floorf(__fadd_rn(__fmul_rn(fabsf(xf), st.scale_in), 0.5f));
-    if (xf < 0.0f) xi = -xi;
-    const bool oob_hi = xi >= st.hi;
-    xi = min(max(xi, st.lo), st.hi - 1);
-    const int yi = ppa_eval(plan, s_starts, s_coefs, num_segments, xi);
-    float v = __fdiv_rn((float)yi, st.scale_out);
-    if (st.sat_identity) {
-      if (oob_hi) v = xf;
-    } else if (st.has_sat_hi) {
-      if (oob_hi) v = st.sat_hi;
-    }
-    const bool neg = x0 < 0.0f;
-    if (neg) {
-      if (st.symmetry == SYM_ODD) v = -v;
-      else if (st.symmetry == SYM_SIGMOID) v = __fsub_rn(1.0f, v);
-      else if (st.symmetry == SYM_MINUS_X) v = __fsub_rn(v, xf);
-    }
-    if (st.gate) v = __fmul_rn(x0, v);
-    store_f32(y, i, v);
+static int launch_order(const FusedLaunch& L, int sym, int gate) {
+  switch (L.p.order) {
+    case 1: return launch_sym<T, 1>(L, sym, gate);
+    case 2: return launch_sym<T, 2>(L, sym, gate);
+    case 3: return launch_sym<T, 3>(L, sym, gate);
+    case 4: return launch_sym<T, 4>(L, sym, gate);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// dtype: 0 float32, 1 bfloat16.  statics_i: lo, hi, symmetry, has_sat_hi,
-// sat_identity, gate, w_in, w_out.
-extern "C" int ppa_fused_launch(const void* x, void* y, long long n, int dtype,
-                                const int* starts, const int* coefs,
-                                int num_segments, const int* plan_ints,
+// dtype: 0 float32, 1 bfloat16.  n_vec: 16-byte vectors to load as such
+// (0 unless x and y are 16-byte aligned).  statics_i: lo, hi, symmetry,
+// saturation, gate, w_in, w_out.
+extern "C" int ppa_fused_launch(const void* x, void* y, long long n,
+                                long long n_vec, int dtype, const int* idx_lut,
+                                const int* coefs, int num_coefs,
+                                const int* plan_ints,
                                 const int* statics_i, float sat_hi,
                                 void* stream) {
   if (n <= 0) return 0;
-  const PpaPlan plan = ppa_plan_from_ints(plan_ints);
-  FusedStatics st;
-  st.lo = statics_i[0];
-  st.hi = statics_i[1];
-  st.symmetry = statics_i[2];
-  st.has_sat_hi = statics_i[3];
-  st.sat_identity = statics_i[4];
-  st.gate = statics_i[5];
-  st.sat_hi = sat_hi;
-  st.scale_in = (float)(1 << statics_i[6]);
-  st.scale_out = (float)(1 << statics_i[7]);
-  const int threads = 256;
-  const int blocks = ppa_grid_blocks(n, threads);
-  const size_t smem = ppa_table_smem_bytes(num_segments, plan.order);
-  cudaStream_t s = (cudaStream_t)stream;
+  FusedLaunch L;
+  L.x = x;
+  L.y = y;
+  L.n = n;
+  L.n_vec = n_vec;
+  L.a.idx_lut = idx_lut;
+  L.a.coefs = coefs;
+  L.a.num_coefs = num_coefs;
+  L.a.lo = statics_i[0];
+  L.a.hi = statics_i[1];
+  L.a.sat = statics_i[3];
+  L.a.sat_hi = sat_hi;
+  L.a.scale_in = (float)(1 << statics_i[5]);
+  L.a.inv_scale_out = 1.0f / (float)(1 << statics_i[6]);
+  L.p = ppa_plan_from_ints(plan_ints);
+  L.stream = (cudaStream_t)stream;
+  const int sym = statics_i[2], gate = statics_i[4];
   if (dtype == 0) {
-    ppa_fused_kernel<float><<<blocks, threads, smem, s>>>(
-        (const float*)x, (float*)y, n, starts, coefs, num_segments, plan, st);
-  } else if (dtype == 1) {
-    ppa_fused_kernel<__nv_bfloat16><<<blocks, threads, smem, s>>>(
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, n, starts, coefs,
-        num_segments, plan, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (n_vec < 0 || n_vec * 4 > n) return (int)cudaErrorInvalidValue;
+    return launch_order<float>(L, sym, gate);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    if (n_vec < 0 || n_vec * 8 > n) return (int)cudaErrorInvalidValue;
+    return launch_order<__nv_bfloat16>(L, sym, gate);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,7 @@ version of the kernel, which the wrapper runs on a CPU tensor.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -20,13 +21,17 @@ import torch
 from .build import check_cuda_input, get_lib, raise_on_error, stream_of
 from .ref import ppa_eval_ref
 
-__all__ = ["condition_f32", "counts", "ppa_fused_apply", "ppa_fused_plain"]
+__all__ = ["condition_f32", "counts", "ppa_fused_apply", "ppa_fused_plain",
+           "shape_counts", "vector_split"]
 
 #: kernel launches and plain-version calls
 counts = {"launches": 0, "plain": 0}
+#: kernel launches by input shape
+shape_counts: collections.Counter = collections.Counter()
 
 _SYMMETRY_CODE = {None: 0, "odd": 1, "sigmoid": 2, "minus_x": 3}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VECTOR_BYTES = 16    # one load or store per thread (csrc/ppa_fused.cu)
 _c = ctypes.c_void_p
 
 
@@ -79,12 +84,19 @@ def ppa_fused_plain(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
     return condition_f32(tc, x.to(torch.float32), eval_ref, gate).to(x.dtype)
 
 
+def vector_split(numel: int, itemsize: int, aligned: bool) -> int:
+    """How many 16-byte vectors the kernel loads as such: all whole ones
+    when input and output are 16-byte aligned, else none.  The elements
+    after them take one thread each."""
+    return numel // (_VECTOR_BYTES // itemsize) if aligned else 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = get_lib("ppa_fused")
     if lib.ppa_fused_launch.argtypes is None:
         lib.ppa_fused_launch.argtypes = [
-            _c, _c, ctypes.c_longlong, ctypes.c_int, _c, _c, ctypes.c_int,
-            _c, _c, ctypes.c_float, _c]
+            _c, _c, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _c,
+            _c, ctypes.c_int, _c, _c, ctypes.c_float, _c]
         lib.ppa_fused_launch.restype = ctypes.c_int
     return lib
 
@@ -99,17 +111,21 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
         raise ValueError(f"ppa_fused: table on {tc.starts.device}, "
                          f"input on {x.device}")
     y = torch.empty_like(x)
+    n_vec = vector_split(x.numel(), x.element_size(),
+                         (x.data_ptr() | y.data_ptr()) % _VECTOR_BYTES == 0)
     plan = (ctypes.c_int * len(tc.plan_ints))(*tc.plan_ints)
-    statics = (ctypes.c_int * 8)(
-        tc.lo, tc.hi, _SYMMETRY_CODE[tc.symmetry], tc.sat_hi is not None,
-        tc.sat_identity, gate, tc.w_in, tc.w_out)
+    sat = 2 if tc.sat_identity else int(tc.sat_hi is not None)
+    statics = (ctypes.c_int * 7)(
+        tc.lo, tc.hi, _SYMMETRY_CODE[tc.symmetry], sat, gate, tc.w_in,
+        tc.w_out)
     sat_hi = 0.0 if tc.sat_hi is None else float(tc.sat_hi)
     with torch.cuda.device(x.device):
         rc = _lib().ppa_fused_launch(
-            x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype],
-            tc.starts.data_ptr(), tc.coefs.data_ptr(), tc.num_segments,
-            ctypes.cast(plan, _c), ctypes.cast(statics, _c), sat_hi,
-            stream_of(x))
+            x.data_ptr(), y.data_ptr(), x.numel(), n_vec,
+            _DTYPE_CODE[x.dtype], tc.idx_lut.data_ptr(),
+            tc.coefs.data_ptr(), tc.coefs.numel(), ctypes.cast(plan, _c),
+            ctypes.cast(statics, _c), sat_hi, stream_of(x))
     raise_on_error(rc, "ppa_fused")
     counts["launches"] += 1
+    shape_counts[tuple(x.shape)] += 1
     return y

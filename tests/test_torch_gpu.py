@@ -18,6 +18,11 @@ from repro_torch.tables import BITS, NAFS, load_table  # noqa: E402
 
 TABLES = [(naf, bits) for naf in NAFS for bits in BITS]
 SOFTMAX_ATOL = 1e-6       # the reference's own kernel-vs-wrapper bound
+#: the served model's launch shapes (decode, largest prefill bucket)
+FUSED_SHAPES = [(4, 1, 8192), (512, 8192)]
+SOFTMAX_SHAPES = [(4, 8, 2, 1, 512), (4, 8, 2, 128, 128)]
+#: both layouts of the warp-per-row path, and the block-per-row path
+ROW_LENGTHS = [1, 31, 33, 512, 1024, 2048, 4096]
 
 
 def _card():
@@ -74,6 +79,71 @@ def test_softmax_kernel_on_card():
         got = softmax_ppa.softmax_ppa(x, tc, w)
         want = softmax_ppa.softmax_ppa_plain(x, tc, w)
         assert float((got - want).abs().max()) <= SOFTMAX_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FUSED_SHAPES + [(3, 1001), "unaligned"])
+def test_cuda_fused_kernel_at_launch_shapes(shape, dtype):
+    """Exact at the served shapes, at a size that is not a multiple of 8
+    (a scalar tail after the 16-byte vectors) and on an input that is not
+    16-byte aligned (no vectors), gated and not, on every table."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for naf, bits in TABLES:
+        tc = K.pack_table(load_table(naf, bits), dev)
+        if shape == "unaligned":
+            x = torch.randn(8192, generator=gen, device=dev)[1:]
+        else:
+            x = torch.randn(shape, generator=gen, device=dev)
+        x = (x * tc.interval[1]).to(getattr(torch, dtype))
+        for gate in (False, True):
+            assert torch.equal(fused.ppa_fused_apply(tc, x, gate),
+                               fused.ppa_fused_plain(tc, x, gate)), (
+                naf, bits, gate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SOFTMAX_SHAPES)
+def test_softmax_kernel_at_launch_shapes(shape):
+    """Attention's scores with its (B, 1, 1, T, S) mask: causal, the last
+    quarter of the ring still empty at decode, one row all masked."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(0, 4, shape).astype(np.float32)).to(dev)
+    b, t, s = shape[0], shape[-2], shape[-1]
+    qp = np.arange(t)[:, None] + (s - t) - (s // 4 if t == 1 else 0)
+    valid = np.broadcast_to(np.arange(s)[None, :] <= qp, (b, 1, 1, t, s))
+    valid = valid.copy()
+    valid[0, 0, 0, 0] = False
+    where = torch.from_numpy(valid).to(dev)
+    for w in (None, where):
+        got = softmax_ppa.softmax_ppa(x, tc, w)
+        want = softmax_ppa.softmax_ppa_plain(x, tc, w)
+        assert float((got - want).abs().max()) <= SOFTMAX_ATOL
+    assert not got[0, :, :, 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", ROW_LENGTHS)
+def test_softmax_kernel_row_lengths(n):
+    """Rows of every layout, masked and not, aligned and not; an
+    all-masked row is exactly 0."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    rng = np.random.default_rng(n)
+    flat = torch.from_numpy(rng.normal(0, 4, 16 * n + 1).astype(np.float32)
+                            ).to(dev)
+    where = torch.from_numpy(rng.random((16, n)) < 0.7).to(dev)
+    where[3] = False
+    for x in (flat[:16 * n].view(16, n), flat[1:].view(16, n)):
+        for w in (None, where):
+            got = softmax_ppa.softmax_ppa(x, tc, w)
+            want = softmax_ppa.softmax_ppa_plain(x, tc, w)
+            assert float((got - want).abs().max()) <= SOFTMAX_ATOL
+        assert not got[3].any()
 
 
 @pytest.mark.gpu

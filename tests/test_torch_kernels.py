@@ -289,3 +289,89 @@ def test_wrappers_reject_other_devices_and_dtypes():
         softmax_ppa.softmax_ppa(meta_i.float(), tc)
     with pytest.raises(ValueError, match="unknown backend"):
         K.ppa_apply(tc, torch.zeros(4), backend="pallas")
+
+
+# ---------------------------------------------------------------- dispatch
+ROUTE_LENGTHS = [(1, (1, 1)), (31, (1, 1)), (33, (1, 2)), (512, (4, 4)),
+                 (1024, (4, 8)), (2048, (4, 16)), (2049, (0, 0)),
+                 (4096, (0, 0))]
+SPLIT_SIZES = [1, 7, 9, 1001, 3 * 1001, 8 * 1024]
+
+
+@pytest.fixture(scope="module")
+def route_cases():
+    """{n: (x, where, reference)} for 3 rows of each length, the second
+    all masked.  The reference runs once, on the rows padded to the
+    longest length with masked columns (they give 0 and leave the max and
+    the sum alone), so it compiles once."""
+    rtc, _ = _pair("exp2_frac", 16)
+    width = max(n for n, _ in ROUTE_LENGTHS)
+    rng = np.random.default_rng(19)
+    xs, ws = [], []
+    for n, _ in ROUTE_LENGTHS:
+        x = np.zeros((3, width), np.float32)
+        x[:, :n] = rng.normal(0, 4, size=(3, n))
+        w = np.zeros((3, width), bool)
+        w[:, :n] = rng.random((3, n)) < 0.7
+        w[1] = False
+        xs.append(x)
+        ws.append(w)
+    want = np.asarray(R.ppa_softmax(rtc, jnp.asarray(np.concatenate(xs)),
+                                    where=jnp.asarray(np.concatenate(ws))))
+    return {n: (xs[i][:, :n], ws[i][:, :n], want[3 * i:3 * i + 3, :n])
+            for i, (n, _) in enumerate(ROUTE_LENGTHS)}
+
+
+@pytest.mark.parametrize("n,layout", ROUTE_LENGTHS)
+def test_softmax_route_by_row_length(route_cases, n, layout):
+    """Rows of up to 2048 scores take one warp each, held in registers
+    (16-byte loads when the row length is a multiple of 4 and the row
+    aligned), longer rows one block each.  At each length the CPU path
+    matches the reference, masked, with an all-masked row."""
+    assert softmax_ppa.route(n, True) == layout
+    vec, items = softmax_ppa.route(n, False)
+    assert vec in (0, 1) and (vec == 0) == (layout == (0, 0))
+    for v, it in (layout, (vec, items)):
+        if v:
+            assert 32 * v * it >= n and (it == 1 or 16 * v * it < n)
+    _, tc = _pair("exp2_frac", 16)
+    x, where, want = route_cases[n]
+    got = K.ppa_softmax(tc, torch.from_numpy(np.ascontiguousarray(x)),
+                        where=torch.from_numpy(np.ascontiguousarray(where)),
+                        backend="cuda_fused")
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=SOFTMAX_ATOL)
+    assert not got.numpy()[1].any()
+
+
+@pytest.fixture(scope="module")
+def split_cases():
+    """{dtype: (x, reference gate)} on the longest size; the gate is
+    elementwise, so a prefix of the input gives that prefix of it."""
+    rtc, _ = _pair("sigmoid_wide", 16)
+    x = np.random.default_rng(23).normal(0, 4, max(SPLIT_SIZES)
+                                         ).astype(np.float32)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+        out[dtype] = (x, np.asarray(R.ppa_gate(rtc, jx, backend="ref")
+                                    .astype(jnp.float32)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", SPLIT_SIZES)
+def test_fused_vector_split(split_cases, size, dtype):
+    """The fused kernel loads whole 16-byte vectors of aligned inputs and
+    takes the rest one element per thread: every element once, also for
+    sizes that are not a multiple of 8.  At each size the CPU path equals
+    the reference bit for bit."""
+    t = getattr(torch, dtype)
+    per = 16 // t.itemsize
+    n_vec = fused.vector_split(size, t.itemsize, True)
+    assert n_vec * per <= size < (n_vec + 1) * per
+    assert fused.vector_split(size, t.itemsize, False) == 0
+    _, tc = _pair("sigmoid_wide", 16)
+    x, want = split_cases[dtype]
+    got = fused.ppa_fused_apply(tc, torch.from_numpy(x[:size]).to(t), True)
+    np.testing.assert_array_equal(_f32_bits(got),
+                                  want[:size].view(np.uint32))

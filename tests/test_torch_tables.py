@@ -1,12 +1,18 @@
 """The PPA tables the PyTorch port ships stay true to the FQA compiler.
 
-* every committed ``src/repro_torch/tables/<naf>-<bits>.json`` equals
-  ``repro.compiler.compile_or_load`` on the reference's default store;
+* every committed ``src/repro_torch/tables/<naf>-<bits>.json`` equals the
+  reference compiler's output on the reference's default store: the 12
+  jobs go through one ``repro.compiler.compile_batch`` call over a few
+  processes (a module fixture);
 * the port's numpy golden model and ``pack_table`` (starts, coefs, lo, hi,
   idx_lut, val_lut) equal the reference's over the whole input grid;
 * the port's exhaustive int32 guard agrees with the reference certifier
   (``repro.analysis.certify.certify_table``) and rejects an overflowing
   table.
+
+The eval, pack and guard tests read the shipped JSON into the reference's
+``PPATable`` through its own loader (``PPATable.from_json``), so both
+packages see the same table data and need no compile.
 
 Run as a script, this file rewrites the JSONs from the reference compiler:
 
@@ -24,7 +30,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402,F401  (the reference side runs on the CPU)
 
 from repro.analysis.certify import certify_table  # noqa: E402
-from repro.compiler import compile_or_load  # noqa: E402
+from repro.compiler import CompileJob, compile_batch  # noqa: E402
+from repro.core import PPATable as RefPPATable  # noqa: E402
 from repro.core import eval_table_int as ref_eval_table_int  # noqa: E402
 from repro.kernels import pack_table as ref_pack_table  # noqa: E402
 from repro.models.activations import \
@@ -39,6 +46,8 @@ FIELDS = ("naf", "interval", "cfg", "scheme", "starts_int", "a_int",
           "b_int", "mae_hard", "mae_t")
 JOBS = [(naf, cfg.w_out) for impl in ("ppa", "ppa8")
         for naf, cfg, _ in ref_table_jobs(impl)]
+#: worker processes of the one batch compile
+COMPILE_PROCESSES = 3
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,6 +61,27 @@ def _two_threads():
 def _ref_job(naf, bits):
     impl = "ppa" if bits == 16 else "ppa8"
     return next(j for j in ref_table_jobs(impl) if j[0] == naf)
+
+
+def _compile_all():
+    """{(naf, bits): PPATable} from the reference compiler, one batch on
+    the reference's default store.  The widest input intervals go first:
+    their compiles take longest, so the batch ends soon after them."""
+    order = sorted(JOBS, key=lambda j: -np.diff(load_table(*j).interval)[0])
+    jobs = [CompileJob(*_ref_job(naf, bits)) for naf, bits in order]
+    return dict(zip(order, compile_batch(jobs,
+                                         processes=COMPILE_PROCESSES)))
+
+
+@pytest.fixture(scope="module")
+def compiled():
+    return _compile_all()
+
+
+def _ref_table(naf, bits):
+    """The shipped JSON as the reference's PPATable, through its loader."""
+    d = json.loads(table_path(naf, bits).read_text())
+    return RefPPATable.from_json(json.dumps({**d, "stats": {}}))
 
 
 def _as_json(table) -> dict:
@@ -79,9 +109,8 @@ def test_port_jobs_are_the_reference_jobs():
 
 
 @pytest.mark.parametrize("naf,bits", JOBS)
-def test_shipped_table_equals_reference_compile(naf, bits):
-    ref = json.loads(json.dumps(_as_json(
-        compile_or_load(*_ref_job(naf, bits)))))
+def test_shipped_table_equals_reference_compile(compiled, naf, bits):
+    ref = json.loads(json.dumps(_as_json(compiled[naf, bits])))
     shipped = json.loads(table_path(naf, bits).read_text())
     assert sorted(shipped) == sorted(FIELDS)
     for k in FIELDS:
@@ -95,7 +124,7 @@ def test_eval_table_int_matches_reference(naf, bits):
     grid = _grid(tab)
     x = np.concatenate([grid, grid + len(grid), -grid - 1,
                         rng.integers(-4096, 8192, 999)])
-    ref_tab = compile_or_load(*_ref_job(naf, bits))
+    ref_tab = _ref_table(naf, bits)
     np.testing.assert_array_equal(eval_table_int(tab, x),
                                   ref_eval_table_int(ref_tab, x))
 
@@ -103,7 +132,7 @@ def test_eval_table_int_matches_reference(naf, bits):
 @pytest.mark.parametrize("naf,bits", JOBS)
 def test_pack_table_matches_reference(naf, bits):
     tc = pack_table(load_table(naf, bits), "cpu")
-    rtc = ref_pack_table(compile_or_load(*_ref_job(naf, bits)))
+    rtc = ref_pack_table(_ref_table(naf, bits))
     assert (tc.lo, tc.hi, tc.num_segments) == (rtc.lo, rtc.hi,
                                                rtc.num_segments)
     assert (tc.symmetry, tc.sat_hi, tc.sat_identity) == (
@@ -118,7 +147,7 @@ def test_pack_table_matches_reference(naf, bits):
 
 @pytest.mark.parametrize("naf,bits", JOBS)
 def test_int32_guard_agrees_with_certifier(naf, bits):
-    ref_tab = compile_or_load(*_ref_job(naf, bits))
+    ref_tab = _ref_table(naf, bits)
     tab = load_table(naf, bits)
     try:
         check_int32(tab, _grid(tab))
@@ -132,7 +161,7 @@ def test_int32_guard_agrees_with_certifier(naf, bits):
 def test_int32_guard_rejects_overflowing_table():
     """A hand-built table whose second Horner stage leaves int32: both the
     certifier and the port's guard reject it."""
-    ref_tab = compile_or_load(*_ref_job("exp2_frac", 16))
+    ref_tab = _ref_table("exp2_frac", 16)
     big = dataclasses.replace(ref_tab, a_int=ref_tab.a_int.copy())
     big.a_int[3, 1] = 1 << 30
     assert not certify_table(big).ok
@@ -146,10 +175,9 @@ def test_int32_guard_rejects_overflowing_table():
 
 def main():
     """Rewrite the shipped JSONs from the reference compiler."""
-    for naf, bits in JOBS:
+    for (naf, bits), table in _compile_all().items():
         path = table_path(naf, bits)
-        path.write_text(json.dumps(_as_json(
-            compile_or_load(*_ref_job(naf, bits)))))
+        path.write_text(json.dumps(_as_json(table)))
         print(f"wrote {path}")
 
 
