@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time the fused PPA activation and the PPA softmax kernels of one tree of
-the PyTorch port at the shapes the served model launches them at.
+"""Time the integer PPA, the fused PPA activation and the PPA softmax
+kernels of one tree of the PyTorch port at the shapes the served model
+launches them at.
 
   python3 scripts/torch_kernel_times.py [--src DIR]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported
 (default: this checkout's), so the kernels of two trees are compared by
 running the script on each in one call, in the order old, new, new, old.
-The work is ``chip_smoke.py``'s (``activation_kernel_times``): each
-kernel is first held to its plain version (fused: bit for bit; softmax:
+The work is ``chip_smoke.py``'s (``kernel_times``): each kernel is first
+held to its plain version (integer and fused: bit for bit; softmax:
 within 1e-6), then timed (device ms per launch from a CUDA graph of
 back-to-back launches, host us per call) beside its bound.  Prints one
 JSON object.
@@ -36,7 +37,7 @@ def main() -> int:
     sys.path[:0] = [str(src), str(ROOT)]
     import chip_smoke as cs
     import repro_torch
-    from repro_torch.kernels import fused, softmax_ppa
+    from repro_torch.kernels import fused, ppa, softmax_ppa
     from repro_torch.kernels.ops import pack_table
     from repro_torch.tables import load_table
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
@@ -45,8 +46,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    times = cs.activation_kernel_times(
-        torch, dev, gen, fused, softmax_ppa,
+    times = cs.kernel_times(
+        torch, dev, gen, ppa, fused, softmax_ppa,
         pack_table(load_table("sigmoid_wide", 16), dev),
         pack_table(load_table("exp2_frac", 16), dev), plain=False)
     print(json.dumps({"src": str(src), "card": cs.card_line(),

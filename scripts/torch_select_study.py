@@ -71,7 +71,8 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import fused
-    from repro_torch.kernels.build import raise_on_error, stream_of
+    from repro_torch.kernels.build import (raise_on_error, stream_of,
+                                          vector_split)
     from repro_torch.kernels.ops import pack_table
     from repro_torch.tables import load_table
 
@@ -90,7 +91,7 @@ def main() -> int:
         y = torch.empty_like(x)
         rc = lib.coarse_fused_launch(
             x.data_ptr(), y.data_ptr(), x.numel(),
-            fused.vector_split(x.numel(), 2, True), first_t.data_ptr(),
+            vector_split(x.numel(), 2, True), first_t.data_ptr(),
             len(first), tc.starts.data_ptr(), tc.num_segments, shift,
             1 << (STEPS - 1), tc.coefs.data_ptr(), tc.coefs.numel(),
             ctypes.cast(plan, c),

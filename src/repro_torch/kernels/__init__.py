@@ -16,7 +16,8 @@ __all__ = ["Backend", "TableConsts", "available_backends", "check_int32",
 
 _COUNTS = {"ppa_int": ppa.counts, "ppa_fused": fused.counts,
            "softmax_ppa": softmax_ppa.counts, "ref": ref.counts}
-_SHAPE_COUNTS = {"ppa_fused": fused.shape_counts,
+_SHAPE_COUNTS = {"ppa_int": ppa.shape_counts,
+                 "ppa_fused": fused.shape_counts,
                  "softmax_ppa": softmax_ppa.shape_counts}
 
 
@@ -31,8 +32,7 @@ def reset_counts() -> None:
 
 
 def read_shape_counts() -> Dict[str, Dict[tuple, int]]:
-    """{kernel: {input shape: launches}} for the fused and softmax
-    kernels."""
+    """{kernel: {input shape: launches}} for the three kernels."""
     return {name: dict(c) for name, c in _SHAPE_COUNTS.items()}
 
 

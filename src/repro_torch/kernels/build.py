@@ -28,8 +28,9 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "build_all", "check_cuda_input",
-           "get_lib", "ptxas_log", "raise_on_error", "stream_of"]
+__all__ = ["KERNELS", "NVCC_FLAGS", "VECTOR_BYTES", "build_all",
+           "check_cuda_input", "get_lib", "ptxas_log", "raise_on_error",
+           "stream_of", "vector_split"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,6 +38,8 @@ KERNELS = ("ppa_int", "ppa_fused", "softmax_ppa")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+VECTOR_BYTES = 16   # one load or store per thread of the elementwise
+                    # kernels (csrc/ppa_fused.cu, csrc/ppa_int.cu)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -135,6 +138,13 @@ def check_cuda_input(t, dtypes, what: str) -> None:
         raise NotImplementedError(
             f"{what}: the CUDA kernel is forward-only; its backward is not "
             "ported yet")
+
+
+def vector_split(numel: int, itemsize: int, aligned: bool) -> int:
+    """How many 16-byte vectors an elementwise kernel loads as such: all
+    whole ones when input and output are 16-byte aligned, else none.  The
+    elements after them take one thread each."""
+    return numel // (VECTOR_BYTES // itemsize) if aligned else 0
 
 
 def stream_of(t) -> ctypes.c_void_p:

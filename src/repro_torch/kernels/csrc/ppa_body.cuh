@@ -6,12 +6,11 @@
 //
 // * Segment select: the reference runs an unrolled (S-1)-step
 //   compare-select sweep, because the TPU vector unit cannot address
-//   memory per lane.  ppa_int.cu binary-searches the segment starts staged
-//   in shared memory (ppa_select: upper bound, minus one, clamped at 0):
-//   the same row, in ceil(log2(S+1)) steps instead of S-1.  ppa_fused.cu
-//   and softmax_ppa.cu stage the table's idx_lut (the same row for every
-//   input in [lo, hi), tabulated by kernels/ops.py::pack_table) and select
-//   with one load (ppa_stage_lut, below).
+//   memory per lane.  Here each kernel stages the table's idx_lut (the
+//   segment of every input in [lo, hi), tabulated by kernels/ops.py::
+//   pack_table) and the coefficient rows in shared memory (ppa_stage_lut,
+//   below), and selects with one load of the idx_lut at the input clamped
+//   to [lo, hi - 1].
 // * Horner: signed 32-bit arithmetic with the plan's shifts; `>>` on a
 //   signed int is the arithmetic shift (two's-complement floor), as in
 //   numpy and torch.  Products, sums and left shifts go through unsigned
@@ -55,23 +54,6 @@ static inline PpaPlan ppa_plan_from_ints(const int* v) {
   return p;
 }
 
-// Shared memory the staged table takes: S starts + S * (order + 1) coefs.
-static inline size_t ppa_table_smem_bytes(int num_segments, int order) {
-  return sizeof(int) * (size_t)num_segments * (size_t)(order + 2);
-}
-
-// Blocks for a grid-stride pass over n elements: enough to fill the card,
-// few enough that each block stages the table once for many elements.
-static inline int ppa_grid_blocks(long long n, int threads) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  long long want = (n + threads - 1) / threads;
-  long long cap = (long long)sms * 8;
-  return (int)(want < cap ? (want > 0 ? want : 1) : cap);
-}
-
 __device__ __forceinline__ int ppa_shl(int v, int s) {
   return (int)((unsigned)v << s);
 }
@@ -87,51 +69,10 @@ __device__ __forceinline__ int ppa_trunc_mult(const PpaPlan& p, int v, int sh) {
   return ppa_apply_shift(v, sh);
 }
 
-// Index of the last start <= x; 0 below starts[0].
-__device__ __forceinline__ int ppa_select(const int* starts, int num_segments,
-                                          int x) {
-  int lo = 0, hi = num_segments;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (starts[mid] <= x) lo = mid + 1; else hi = mid;
-  }
-  return lo > 0 ? lo - 1 : 0;
-}
-
-// Select + Horner for one integer input at FWL w_in -> output at FWL w_out.
-__device__ __forceinline__ int ppa_eval(const PpaPlan& p, const int* starts,
-                                        const int* coefs, int num_segments,
-                                        int x) {
-  const int* row = coefs + ppa_select(starts, num_segments, x) * (p.order + 1);
-  int h = ppa_trunc_mult(p, (int)((unsigned)row[0] * (unsigned)x),
-                         p.mult_shifts[0]);
-  for (int i = 1; i < p.order; ++i) {
-    int g = (int)((unsigned)ppa_shl(h, p.up_g[i - 1]) +
-                  (unsigned)ppa_shl(row[i], p.up_a[i - 1]));
-    h = ppa_trunc_mult(p, (int)((unsigned)g * (unsigned)x), p.mult_shifts[i]);
-  }
-  int out = (int)((unsigned)ppa_shl(h, p.up_h) +
-                  (unsigned)ppa_shl(row[p.order], p.up_b));
-  return ppa_apply_shift(out, p.down_out);
-}
-
-// Copy the table into shared memory; every thread of the block takes part.
-__device__ __forceinline__ void ppa_stage_table(const int* __restrict__ starts,
-                                                const int* __restrict__ coefs,
-                                                int num_segments, int order,
-                                                int* s_starts, int* s_coefs) {
-  for (int i = threadIdx.x; i < num_segments; i += blockDim.x)
-    s_starts[i] = starts[i];
-  const int nc = num_segments * (order + 1);
-  for (int i = threadIdx.x; i < nc; i += blockDim.x) s_coefs[i] = coefs[i];
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// For kernels whose order is a template parameter (ppa_fused.cu,
-// softmax_ppa.cu).  The stage loop is unrolled, so every index into the
-// plan's arrays is a compile-time constant: the plan stays in the kernel's
-// parameter space and no stack frame is needed (a loop bounded by the
+// Every kernel takes the order as a template parameter.  The stage loop is
+// unrolled, so every index into the plan's arrays is a compile-time
+// constant: the plan stays in the kernel's parameter space and no stack frame is needed (a loop bounded by the
 // run-time `order` makes the compiler copy the plan to local memory).
 
 // Horner over one segment's coefficients c = (a_1 .. a_ORDER, b).
@@ -222,4 +163,27 @@ static inline int ppa_sm_count() {
                              dev) != cudaSuccess)
     return 132;
   return cached[dev];
+}
+
+// The launch of an elementwise kernel that stages a table (ppa_stage_lut)
+// and gives each thread one 16-byte vector, or one element past the n_vec
+// vectors (tail of them): blocks of `threads` sized to that work, at most
+// blocks_per_sm per SM, beyond which blocks walk the input so that a
+// block's staged table serves many vectors.  Fails when the staged table
+// does not fit in the 48 KB of shared memory a launch gets without opting
+// in.
+struct PpaGrid {
+  unsigned blocks;
+  size_t smem;
+};
+
+static inline cudaError_t ppa_lut_grid(long long n_vec, long long tail,
+                                       int threads, int blocks_per_sm,
+                                       int span, int num_coefs, PpaGrid* g) {
+  const long long work = n_vec > tail ? n_vec : tail;
+  const long long cap = (long long)ppa_sm_count() * blocks_per_sm;
+  const long long want = (work + threads - 1) / threads;
+  g->blocks = (unsigned)(want < cap ? want : cap);
+  g->smem = ppa_lut_smem_bytes(span, num_coefs);
+  return g->smem > 48 * 1024 ? cudaErrorInvalidValue : cudaSuccess;
 }

@@ -217,23 +217,21 @@ struct FusedLaunch {
 // block's table staged once for many vectors.
 template <typename T, int ORDER, int SYM>
 static int launch_gate(const FusedLaunch& L, int gate) {
-  const long long tail = L.n - L.n_vec * Vec16<T>::N;
-  const long long work = L.n_vec > tail ? L.n_vec : tail;
-  const long long cap = (long long)ppa_sm_count() * FUSED_BLOCKS_PER_SM;
-  const long long want = (work + FUSED_THREADS - 1) / FUSED_THREADS;
-  const unsigned blocks = (unsigned)(want < cap ? want : cap);
-  const size_t smem = ppa_lut_smem_bytes(L.a.hi - L.a.lo, L.a.num_coefs);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  PpaGrid g;
+  const cudaError_t rc = ppa_lut_grid(
+      L.n_vec, L.n - L.n_vec * Vec16<T>::N, FUSED_THREADS,
+      FUSED_BLOCKS_PER_SM, L.a.hi - L.a.lo, L.a.num_coefs, &g);
+  if (rc != cudaSuccess) return (int)rc;
   const T* x = (const T*)L.x;
   T* y = (T*)L.y;
   if (gate)
     ppa_fused_kernel<T, ORDER, SYM, true>
-        <<<blocks, FUSED_THREADS, smem, L.stream>>>(x, y, L.n, L.n_vec, L.a,
-                                                    L.p);
+        <<<g.blocks, FUSED_THREADS, g.smem, L.stream>>>(x, y, L.n, L.n_vec,
+                                                        L.a, L.p);
   else
     ppa_fused_kernel<T, ORDER, SYM, false>
-        <<<blocks, FUSED_THREADS, smem, L.stream>>>(x, y, L.n, L.n_vec, L.a,
-                                                    L.p);
+        <<<g.blocks, FUSED_THREADS, g.smem, L.stream>>>(x, y, L.n, L.n_vec,
+                                                        L.a, L.p);
   return (int)cudaGetLastError();
 }
 

@@ -18,11 +18,12 @@ import ctypes
 
 import torch
 
-from .build import check_cuda_input, get_lib, raise_on_error, stream_of
+from .build import (VECTOR_BYTES, check_cuda_input, get_lib, raise_on_error,
+                    stream_of, vector_split)
 from .ref import ppa_eval_ref
 
 __all__ = ["condition_f32", "counts", "ppa_fused_apply", "ppa_fused_plain",
-           "shape_counts", "vector_split"]
+           "shape_counts"]
 
 #: kernel launches and plain-version calls
 counts = {"launches": 0, "plain": 0}
@@ -31,7 +32,6 @@ shape_counts: collections.Counter = collections.Counter()
 
 _SYMMETRY_CODE = {None: 0, "odd": 1, "sigmoid": 2, "minus_x": 3}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VECTOR_BYTES = 16    # one load or store per thread (csrc/ppa_fused.cu)
 _c = ctypes.c_void_p
 
 
@@ -84,13 +84,6 @@ def ppa_fused_plain(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
     return condition_f32(tc, x.to(torch.float32), eval_ref, gate).to(x.dtype)
 
 
-def vector_split(numel: int, itemsize: int, aligned: bool) -> int:
-    """How many 16-byte vectors the kernel loads as such: all whole ones
-    when input and output are 16-byte aligned, else none.  The elements
-    after them take one thread each."""
-    return numel // (_VECTOR_BYTES // itemsize) if aligned else 0
-
-
 def _lib() -> ctypes.CDLL:
     lib = get_lib("ppa_fused")
     if lib.ppa_fused_launch.argtypes is None:
@@ -112,7 +105,7 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
                          f"input on {x.device}")
     y = torch.empty_like(x)
     n_vec = vector_split(x.numel(), x.element_size(),
-                         (x.data_ptr() | y.data_ptr()) % _VECTOR_BYTES == 0)
+                         (x.data_ptr() | y.data_ptr()) % VECTOR_BYTES == 0)
     plan = (ctypes.c_int * len(tc.plan_ints))(*tc.plan_ints)
     sat = 2 if tc.sat_identity else int(tc.sat_hi is not None)
     statics = (ctypes.c_int * 7)(

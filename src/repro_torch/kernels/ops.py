@@ -22,8 +22,11 @@ Backends (:func:`available_backends`):
                (csrc/ppa_fused.cu)
 
 With ``cuda_int`` or ``cuda_fused`` the softmax runs the softmax kernel
-(csrc/softmax_ppa.cu).  The kernel wrappers run their plain versions on CPU
-tensors.  All backends are bit-identical; softmax agrees within 1e-6.
+(csrc/softmax_ppa.cu), also when its input needs a gradient; the backward
+is the straight-through one of the reference composition around the
+backend's ``ppa_act``, on CPU tensors only until the card has a softmax
+backward.  The kernel wrappers run their plain versions on CPU tensors.
+All backends are bit-identical; softmax agrees within 1e-6.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ class TableConsts:
     val_lut: torch.Tensor       # (hi-lo,) int32 datapath output of x - lo
     lo: int                     # integer interval [lo, hi) at FWL w_in
     hi: int
+    lut_spans_rows: bool        # idx_lut runs from row 0 to row S - 1
 
 
 def check_int32(table: PPATable, grid: np.ndarray) -> np.ndarray:
@@ -141,7 +145,9 @@ def pack_table(table: PPATable, device=None) -> TableConsts:
         plan_ints=plan_ints(plan), symmetry=spec.symmetry,
         sat_hi=spec.sat_hi, sat_identity=spec.sat_identity,
         num_segments=table.num_segments, starts=i32(table.starts_int),
-        coefs=i32(coefs), idx_lut=i32(idx), val_lut=i32(vals), lo=lo, hi=hi)
+        coefs=i32(coefs), idx_lut=i32(idx), val_lut=i32(vals), lo=lo, hi=hi,
+        lut_spans_rows=bool(idx[0] == 0
+                            and idx[-1] == table.num_segments - 1))
 
 
 # --------------------------------------------------------------------------
@@ -257,24 +263,60 @@ def ppa_gate_act(tc: TableConsts, x: torch.Tensor, backend: str = "ref"
     return _apply(tc, x, backend, True)
 
 
+def _softmax_kernel(tc: TableConsts, x: torch.Tensor, axis: int,
+                    where: Optional[torch.Tensor]) -> torch.Tensor:
+    xf = torch.movedim(x.to(torch.float32), axis, -1).contiguous()
+    if where is not None:   # left unexpanded: the kernel broadcasts it
+        where = torch.movedim(where.reshape(
+            (1,) * (x.dim() - where.dim()) + tuple(where.shape)), axis, -1)
+    y = softmax_ppa(xf, tc, where)
+    return torch.movedim(y, -1, axis).to(x.dtype)
+
+
+class _SoftmaxSTE(torch.autograd.Function):
+    """The softmax kernel forward; the backward of the reference
+    composition around the backend's straight-through ``ppa_act``."""
+
+    @staticmethod
+    def forward(ctx, x, tc, where, axis, backend):
+        ctx.save_for_backward(x, where)
+        ctx.tc, ctx.axis, ctx.backend = tc, axis, backend
+        return _softmax_kernel(tc, x, axis, where)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, where = ctx.saved_tensors
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                "ppa_softmax: the softmax kernel is forward-only; its "
+                "backward is not ported to the card yet")
+        tc, backend = ctx.tc, ctx.backend
+        with torch.enable_grad():
+            v = x.detach().requires_grad_(True)
+            y = softmax_ppa_plain(v, tc, where, ctx.axis,
+                                  pow2=lambda f: ppa_act(tc, f, backend))
+            (dx,) = torch.autograd.grad(y, v, g)
+        return dx, None, None, None, None
+
+
 def ppa_softmax(tc_exp2: TableConsts, x: torch.Tensor, *, axis: int = -1,
                 where: Optional[torch.Tensor] = None,
                 backend: str = "ref") -> torch.Tensor:
     """Softmax with the exp through the exp2_frac table.
 
     With a kernel backend it is the softmax kernel (its plain version on a
-    CPU tensor); otherwise the reference composition around ``ppa_act``.
+    CPU tensor), and an input that needs a gradient gets the reference
+    composition's straight-through backward (on the card it raises: the
+    kernel is forward-only).  Otherwise it is the reference composition
+    around ``ppa_act``.
     """
     if not get_backend(backend).kernel_softmax:
         return softmax_ppa_plain(
             x, tc_exp2, where, axis,
             pow2=lambda f: ppa_act(tc_exp2, f, backend))
-    xf = torch.movedim(x.to(torch.float32), axis, -1).contiguous()
-    if where is not None:   # left unexpanded: the kernel broadcasts it
-        where = torch.movedim(where.reshape(
-            (1,) * (x.dim() - where.dim()) + tuple(where.shape)), axis, -1)
-    y = softmax_ppa(xf, tc_exp2, where)
-    return torch.movedim(y, -1, axis).to(x.dtype)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SoftmaxSTE.apply(x, tc_exp2, where, axis, backend)
+    return _softmax_kernel(tc_exp2, x, axis, where)
 
 
 def make_ppa_fn(table: PPATable, backend: str = "ref", device=None):

@@ -89,9 +89,14 @@ def test_fused_bound_by_hand_for_sigmoid_wide_16(cs):
 
 
 def test_int_bound_by_hand_for_sigmoid_wide_16(cs):
-    n = 512 * 8192
-    assert cs.int_bound(n, 461, 2, False) == (
-        pytest.approx((8 * n + 461 * 16) / 3.35e9), "bytes")
+    for n in (512 * 8192, 4 * 1 * 8192):
+        assert cs.int_bound(n, 461, 2, False) == (
+            pytest.approx((8 * n + 461 * 16) / 3.35e9), "bytes")
+    # the PERF.md figures, prefill and decode
+    assert cs.int_bound(512 * 8192, 461, 2, False)[0] == pytest.approx(
+        33_561_808 / 3.35e9)
+    assert cs.int_bound(32_768, 461, 2, False)[0] == pytest.approx(
+        269_520 / 3.35e9)
 
 
 def test_softmax_bound_by_hand_for_exp2_frac_16(cs):

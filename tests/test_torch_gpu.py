@@ -23,6 +23,7 @@ FUSED_SHAPES = [(4, 1, 8192), (512, 8192)]
 SOFTMAX_SHAPES = [(4, 8, 2, 1, 512), (4, 8, 2, 128, 128)]
 #: both layouts of the warp-per-row path, and the block-per-row path
 ROW_LENGTHS = [1, 31, 33, 512, 1024, 2048, 4096]
+INT32_EXTREMES = [-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1]
 
 
 def _card():
@@ -44,13 +45,20 @@ def _float_inputs(tc, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("naf,bits", TABLES)
 def test_cuda_int_kernel_on_card(naf, bits):
+    """Exact over a span beyond each end of the interval and at the int32
+    extremes, on an aligned input, an unaligned view (no 16-byte vectors)
+    and a length 3 past a multiple of 4 (a scalar tail)."""
     dev = _card()
     tc = K.pack_table(load_table(naf, bits), dev)
     span = tc.hi - tc.lo
-    x = torch.arange(tc.lo - span, tc.hi + span, device=dev,
-                     dtype=torch.int32)
-    assert torch.equal(ppa.ppa_eval_int(tc, x),
-                       ref.ppa_eval_ref(x, tc.starts, tc.coefs, tc.plan))
+    x = torch.cat([torch.arange(tc.lo - span, tc.hi + span, device=dev),
+                   torch.tensor(INT32_EXTREMES, device=dev)]
+                  ).to(torch.int32)
+    n3 = (x.numel() - 1) // 4 * 4 - 1
+    for xi in (x, x[1:], x[:n3]):
+        assert torch.equal(ppa.ppa_eval_int(tc, xi),
+                           ref.ppa_eval_ref(xi, tc.starts, tc.coefs,
+                                            tc.plan))
 
 
 @pytest.mark.gpu
@@ -144,6 +152,39 @@ def test_softmax_kernel_row_lengths(n):
             want = softmax_ppa.softmax_ppa_plain(x, tc, w)
             assert float((got - want).abs().max()) <= SOFTMAX_ATOL
         assert not got[3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_softmax_grad_on_card(masked):
+    """With a gradient, the cuda_fused softmax still runs the softmax
+    kernel: one launch, bit for bit the output without a gradient.  Its
+    backward is not ported to the card, and raises rather than fall back
+    to the plain composition."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.normal(0, 4, (2, 2, 3, 7, 300)
+                                    ).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)
+                         ).to(dev)
+    where = None
+    if masked:
+        where = torch.from_numpy(rng.random((2, 1, 1, 7, 300)) < 0.6).to(dev)
+        where[0, 0, 0, 3] = False
+    tx = x.clone().requires_grad_(True)
+    launches, plain = (softmax_ppa.counts["launches"],
+                       softmax_ppa.counts["plain"])
+    y = K.ppa_softmax(tc, tx, where=where, backend="cuda_fused")
+    assert softmax_ppa.counts["launches"] == launches + 1
+    assert softmax_ppa.counts["plain"] == plain
+    assert y.requires_grad
+    with torch.no_grad():
+        kernel = K.ppa_softmax(tc, x, where=where, backend="cuda_fused")
+    assert torch.equal(y.detach(), kernel)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        y.backward(g)
+    assert softmax_ppa.counts["plain"] == plain
 
 
 @pytest.mark.gpu

@@ -35,7 +35,7 @@ from repro.core import eval_table_int as ref_eval_table_int  # noqa: E402
 from repro.kernels.ops import _exact as ref_exact  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import eval_table_int  # noqa: E402
-from repro_torch.kernels import fused, ppa, softmax_ppa  # noqa: E402
+from repro_torch.kernels import build, fused, ppa, softmax_ppa  # noqa: E402
 from repro_torch.tables import BITS, NAFS, load_table, table_path  # noqa: E402
 
 TABLES = [(naf, bits) for naf in NAFS for bits in BITS]
@@ -261,6 +261,95 @@ def test_ppa_gate_act_grad_is_exact_vjp(naf):
                                rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("backend", ["ref", "cuda_int", "cuda_fused"])
+def test_ppa_softmax_grad_is_reference_vjp(backend, masked):
+    """A softmax input that needs a gradient gets the reference
+    composition's straight-through backward on every backend (on the
+    kernel backends around the softmax kernel's forward): the gradient is
+    jax.vjp of the reference's softmax, and the forward is bit for bit the
+    one without a gradient."""
+    rtc, tc = _pair("exp2_frac", 16)
+    rng = np.random.default_rng(29)
+    x = rng.normal(0, 3, size=(2, 3, 5, 40)).astype(np.float32)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    where = rng.random((2, 1, 5, 40)) < 0.7 if masked else None
+    if masked:
+        where[1, 0, 2] = False
+    jw = None if where is None else jnp.asarray(where)
+    want_y, vjp = jax.vjp(lambda v: R.ppa_softmax(rtc, v, where=jw),
+                          jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    tw = None if where is None else torch.from_numpy(where)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y = K.ppa_softmax(tc, tx, where=tw, backend=backend)
+    y.backward(torch.from_numpy(g))
+    assert float(tx.grad.abs().max()) > 0.0
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               rtol=0, atol=SOFTMAX_ATOL)
+    with torch.no_grad():
+        plain = K.ppa_softmax(tc, tx, where=tw, backend=backend)
+    assert torch.equal(y.detach(), plain)
+
+
+# ------------------------------------------------------------------ select
+INT32_EXTREMES = [-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1]
+
+
+@pytest.mark.parametrize("naf,bits", TABLES + [("exp2_frac-round", 12)])
+def test_idx_lut_select_is_the_search(naf, bits):
+    """csrc/ppa_int.cu selects the row of any int32 x as
+    idx_lut[clamp(x, lo, hi - 1) - lo]: the search's row,
+    clamp(searchsorted(starts, x, right) - 1, 0, S - 1), over a span
+    beyond each end of the interval and at the int32 extremes."""
+    if naf == "exp2_frac-round":
+        tc = K.pack_table(_round_mults_tables()[1], "cpu")
+    else:
+        tc = K.pack_table(load_table(naf, bits), "cpu")
+    span = tc.hi - tc.lo
+    x = torch.cat([torch.arange(tc.lo - span, tc.hi + span),
+                   torch.tensor(INT32_EXTREMES)]).to(torch.int32)
+    lut_row = tc.idx_lut[(torch.clamp(x, tc.lo, tc.hi - 1) - tc.lo).long()]
+    search_row = torch.clamp(
+        torch.searchsorted(tc.starts, x, right=True) - 1, 0,
+        tc.num_segments - 1)
+    assert torch.equal(lut_row.long(), search_row)
+
+
+@pytest.mark.parametrize("end", ["first", "last"])
+def test_cuda_int_refuses_a_table_the_select_cannot_take(end):
+    """A segment that starts before the interval (the idx_lut's first
+    entry is not row 0) or after its end (the last entry is not row S - 1)
+    would make the integer kernel's clamped select differ from the search
+    outside the interval: its wrapper raises, on the CPU too, while the
+    other backends, which search, take the table."""
+    tab = load_table("exp2_frac", 16)
+    hi = int(tab.interval[1] * (1 << tab.cfg.w_in))
+    first = end == "first"
+
+    def grow(a, new):
+        return np.concatenate([new, a] if first else [a, new])
+
+    bad = dataclasses.replace(
+        tab, starts_int=grow(tab.starts_int, [-16] if first else [hi + 16]),
+        a_int=grow(tab.a_int, tab.a_int[:1]),
+        b_int=grow(tab.b_int, tab.b_int[:1]))
+    tc = K.pack_table(bad, "cpu")
+    assert not tc.lut_spans_rows
+    assert K.pack_table(tab, "cpu").lut_spans_rows
+    x = torch.arange(tc.lo - 32, tc.hi + 32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="clamped idx_lut select"):
+        ppa.ppa_eval_int(tc, x)
+    with pytest.raises(ValueError, match="clamped idx_lut select"):
+        K.ppa_apply(tc, torch.linspace(0.0, 0.99, 64), backend="cuda_int")
+    want = K.ppa_apply(tc, torch.linspace(0.0, 0.99, 64), backend="ref")
+    for be in ("lut_value", "lut_index", "cuda_fused"):
+        assert torch.equal(
+            K.ppa_apply(tc, torch.linspace(0.0, 0.99, 64), backend=be), want)
+
+
 # ---------------------------------------------------------------- wrappers
 def test_wrappers_run_plain_versions_on_cpu():
     _, tc = _pair("exp2_frac", 16)
@@ -367,9 +456,9 @@ def test_fused_vector_split(split_cases, size, dtype):
     the reference bit for bit."""
     t = getattr(torch, dtype)
     per = 16 // t.itemsize
-    n_vec = fused.vector_split(size, t.itemsize, True)
+    n_vec = build.vector_split(size, t.itemsize, True)
     assert n_vec * per <= size < (n_vec + 1) * per
-    assert fused.vector_split(size, t.itemsize, False) == 0
+    assert build.vector_split(size, t.itemsize, False) == 0
     _, tc = _pair("sigmoid_wide", 16)
     x, want = split_cases[dtype]
     got = fused.ppa_fused_apply(tc, torch.from_numpy(x[:size]).to(t), True)
