@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. card     name and power limit (nvidia-smi) and torch's device name
-2. build    the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-            with nvcc for sm_90a; every entry of every kernel must report
-            a 0-byte stack frame and no spills in its ``-Xptxas -v`` lines
+2. build    the CUDA kernels from ``src/repro_torch/kernels/csrc`` (three
+            sources: the softmax's holds its backward too) with nvcc for
+            sm_90a; every entry of every kernel must report a 0-byte
+            stack frame and no spills in its ``-Xptxas -v`` lines
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main path's shapes, decode and prefill: ``cuda_int`` and
             ``cuda_fused`` must be exactly equal on all 12 shipped tables
@@ -38,14 +39,36 @@ Phases (any failure exits non-zero and prints no result line):
             the limit that ``phase_parity`` states, and the ref arm with
             its softmax moved beyond SOFTMAX_ATOL (``PARITY_CONTROLS``)
             must exceed that limit
+7. train    full-width internlm2-1.8b (24 layers, float32 master weights
+            from seed 0, bf16 compute, act_impl="ppa", cuda_fused,
+            remat "dots"), adamw, batch 4 x seq 512 of the synthetic
+            stream, 8 steps through ``launch/train.py::run_training``:
+            every loss and gradient norm finite, no plain version run,
+            and per step at least layers x (1 + recomputes) launches of
+            the fused and softmax kernels and layers launches of the
+            softmax backward kernel; step ms, tokens/s and peak memory
+8. train_parity  full width, 2 layers, float32: one train step's loss and
+            gradients through ref, cuda_int and cuda_fused on the same
+            params and batch; cuda_int and cuda_fused must be equal, and
+            each against ref within the limit ``phase_train_parity``
+            states, which the ref arm with its softmax moved beyond
+            SOFTMAX_ATOL must exceed
+9. train_resume  ``launch/train.py`` on the smoke config with PPA
+            activations, 30 steps of batch 4 x seq 64 (the README's
+            recipe): the loss descends, and a run that crashes after step
+            3 and resumes from its checkpoint gives the losses of a run
+            without the crash
 
-The last two lines are a JSON object with one entry per kernel, then
-``{"ok": true, "device": {...}}``.
+The kernels phase also holds the softmax backward kernel to its plain
+version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
+1 to 4096 scores, and times it.  The last two lines are a JSON object with
+one entry per kernel, then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import re
@@ -70,6 +93,12 @@ ISSUE_OPS_PER_S = FP32_OPS_PER_S
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 512, 8, 32
 PREFILL_ROWS = 4 * 128          # B * T at the largest prefill bucket
 SOFTMAX_ATOL = 1e-6             # reference bound, tests/test_kernels.py
+# The softmax backward against its plain version, per case, as a fraction
+# of the largest incoming gradient: the two sum c = sum g y and sum d in
+# other orders and divide another way (row_divide), as the forward; for
+# |g| <= 1 this is the forward's 1e-6.
+SOFTMAX_BWD_REL = 1e-6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
 # The parity gate: the largest logit gap between the plain arm and a
 # kernel arm, as a fraction of the largest logit (phase_parity).
 PARITY_LIMIT = 2.0 ** -8
@@ -83,6 +112,10 @@ FUSED_SHAPES = {"decode": (SERVE_SLOTS, 1, 8192),
 INT_SHAPES = FUSED_SHAPES
 SOFTMAX_SHAPES = {"decode": (SERVE_SLOTS, 8, 2, 1, SERVE_CACHE_LEN),
                   "prefill": (4, 8, 2, 128, 128)}
+# The softmax backward at the train phase's scores, (B, Hk, G, T, T), and
+# at a decode-like row of the cache.
+SOFTMAX_BWD_SHAPES = {"train": (TRAIN_BATCH, 8, 2, TRAIN_SEQ, TRAIN_SEQ),
+                      "decode": SOFTMAX_SHAPES["decode"]}
 # Row lengths the softmax is held to its plain version at: both layouts of
 # the warp-per-row path and the block-per-row path beyond 2048.
 SOFTMAX_ROW_LENGTHS = (1, 31, 33, 512, 1024, 2048, 4096)
@@ -170,6 +203,10 @@ def datapath_ops(order: int, round_mults: bool) -> int:
 # -k, scale, +0.5, floor, to-int, to-float, /2^w_out, ldexp, sum, /sum (15).
 FUSED_INT_OPS, FUSED_FP_OPS = 7, 12
 SOFTMAX_INT_OPS, SOFTMAX_FP_OPS = 3, 15
+# The softmax backward does the forward's work, then per score: g y, its
+# sum, the live test, g - c, / D, exp2, the product, the sum of d, the tie
+# test and the share's subtraction (10 float32).
+SOFTMAX_BWD_FP_OPS = SOFTMAX_FP_OPS + 10
 
 
 def bound(nbytes: float, int_ops: float, fp_ops: float = 0.0):
@@ -209,6 +246,15 @@ def softmax_bound(n: int, mask_bytes: int, num_segments: int, order: int,
     return bound(8 * n + mask_bytes + table_bytes(num_segments, order),
                  n * (datapath_ops(order, round_mults) + SOFTMAX_INT_OPS),
                  n * SOFTMAX_FP_OPS)
+
+
+def softmax_bwd_bound(n: int, mask_bytes: int, num_segments: int,
+                      order: int, round_mults: bool):
+    """The softmax backward on n float32 scores: x and g read and dx
+    written, the mask at its unexpanded size."""
+    return bound(12 * n + mask_bytes + table_bytes(num_segments, order),
+                 n * (datapath_ops(order, round_mults) + SOFTMAX_INT_OPS),
+                 n * SOFTMAX_BWD_FP_OPS)
 
 
 # ---------------------------------------------------------------- phases
@@ -476,6 +522,93 @@ def kernel_times(torch, dev, gen, ppa, fused, softmax_ppa, sig, e2,
     return out
 
 
+def _bwd_err(torch, softmax_ppa, e2, x, g, where):
+    """(max |kernel - plain|, SOFTMAX_BWD_REL x max |g|) of the softmax
+    backward on one case."""
+    got = softmax_ppa.softmax_ppa_bwd(x, g, e2, where)
+    want = softmax_ppa.softmax_ppa_bwd_plain(x, g, e2, where)
+    torch.cuda.synchronize()
+    return (float((got - want).abs().max()),
+            SOFTMAX_BWD_REL * float(g.abs().max())), got
+
+
+def _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2):
+    """The softmax backward kernel within SOFTMAX_BWD_REL of its plain
+    version, masked (causal) and not, at the training and decode shapes and
+    on rows of every layout of its two paths, with a three-way tie for a
+    row's max; an all-masked row exactly 0.  Returns the largest
+    difference."""
+    cases = []
+    for name, shape in SOFTMAX_BWD_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device=dev) * 4.0
+        cases += [(name, x, None, None),
+                  (f"{name} masked", x, attention_mask(torch, dev, shape),
+                   (0, 0, 0, 0))]
+    for n in SOFTMAX_ROW_LENGTHS + (1025,):
+        x = torch.randn((16, n), generator=gen, device=dev) * 4.0
+        x[5, :3] = x[5].max() + 1.0
+        where = torch.rand((16, n), generator=gen, device=dev) < 0.7
+        where[3] = False
+        where[5, :3] = True
+        cases += [(f"rows of {n}", x, None, None),
+                  (f"rows of {n} masked", x, where, (3,))]
+    err = ratio = 0.0
+    for label, x, where, dead in cases:
+        g = torch.randn(x.shape, generator=gen, device=dev)
+        (d, lim), got = _bwd_err(torch, softmax_ppa, e2, x, g, where)
+        if not d <= lim:
+            raise AssertionError(f"softmax backward kernel vs plain, {label}"
+                                 f" {tuple(x.shape)}: {d} > {lim}")
+        if dead is not None and float(got[dead].abs().max()) != 0.0:
+            raise AssertionError(f"{label}: all-masked row's gradient is "
+                                 "not all zero")
+        err, ratio = max(err, d), max(ratio, d / lim * SOFTMAX_BWD_REL)
+    log(f"[kernels] softmax backward kernel vs plain: max |diff| {err:.3e},"
+        f" at most {ratio:.2e} x max |g| <= {SOFTMAX_BWD_REL}, on "
+        f"{len(cases)} cases (train {SOFTMAX_BWD_SHAPES['train']} and decode"
+        f" {SOFTMAX_BWD_SHAPES['decode']} with and without the attention "
+        f"mask, rows of {', '.join(map(str, SOFTMAX_ROW_LENGTHS + (1025,)))}"
+        " masked and not, with a three-way tie for a row's max); all-masked"
+        " rows exactly 0")
+    return err
+
+
+def softmax_bwd_times(torch, dev, gen, softmax_ppa, e2, plain: bool = True):
+    """{"train" | "decode": row} for the softmax backward kernel with the
+    attention mask at SOFTMAX_BWD_SHAPES: held to its plain version, then
+    timed beside its bound, as ``kernel_times`` does.  No one PyTorch call
+    computes this function; torch's softmax backward, given as context,
+    is another one."""
+    out = {}
+    for label, shape in SOFTMAX_BWD_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device=dev) * 4.0
+        g = torch.randn(shape, generator=gen, device=dev)
+        where = attention_mask(torch, dev, shape)
+        (err, lim), _ = _bwd_err(torch, softmax_ppa, e2, x, g, where)
+        if not err <= lim:
+            raise AssertionError(f"softmax_ppa_bwd vs plain at {shape}: "
+                                 f"{err} > {lim}")
+        ms, host = time_launch(
+            lambda: softmax_ppa.softmax_ppa_bwd(x, g, e2, where))
+        b_ms, b_by = softmax_bwd_bound(x.numel(), where.numel(),
+                                       e2.num_segments, e2.plan.order,
+                                       e2.plan.round_mults)
+        row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, masked=True,
+                   max_abs_err=err)
+        if plain:
+            row["plain_ms"] = time_ms(
+                lambda: softmax_ppa.softmax_ppa_bwd_plain(x, g, e2, where),
+                iters=10)
+            y = torch.softmax(x.masked_fill(~where.expand(shape),
+                                            float("-inf")), dim=-1)
+            row["context_softmax_backward_ms"], _ = time_launch(
+                lambda: torch.ops.aten._softmax_backward_data(
+                    g, y, -1, torch.float32))
+        out[label] = row
+    return out
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its plain version; returns the kernel rows."""
     from repro_torch.kernels import fused, ppa, ref, softmax_ppa
@@ -497,6 +630,7 @@ def phase_kernels(torch, dev):
     _check_fused(torch, gen, dev, fused, tcs)
     e2 = tcs[("exp2_frac", 16)]
     sm_err = _check_softmax(torch, gen, dev, softmax_ppa, e2)
+    bwd_err = _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2)
 
     # ---- timings at main-path shapes
     sig = tcs[("sigmoid_wide", 16)]
@@ -522,10 +656,20 @@ def phase_kernels(torch, dev):
         **{k: times["softmax_ppa"]["prefill"][k] for k in keys},
         masked=True, table="exp2_frac-16", shapes=times["softmax_ppa"])
 
-    rows = [int_row, fused_row, sm_row]
+    bwd_times = softmax_bwd_times(torch, dev, gen, softmax_ppa, e2)
+    bwd_row = dict(
+        name="softmax_ppa_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/softmax_ppa.cu",
+        replaces="src/repro/kernels/ops.py:391", max_abs_err=bwd_err,
+        **{k: bwd_times["train"][k] for k in keys}, masked=True,
+        table="exp2_frac-16", shapes=bwd_times)
+
+    rows = [int_row, fused_row, sm_row, bwd_row]
     for r in rows:
         for label, t in r["shapes"].items():
-            ctx = t.get("context_silu_ms", t.get("context_masked_softmax_ms"))
+            ctx = t.get("context_silu_ms", t.get(
+                "context_masked_softmax_ms",
+                t.get("context_softmax_backward_ms")))
             log(f"[kernels] {r['name']} {label} {t['shape']}: "
                 f"{t['ms']:.5f} ms on the device (plain {t['plain_ms']:.5f}"
                 f" ms, bound {t['bound_ms']:.7f} ms by {t['bound_by']}, "
@@ -710,6 +854,21 @@ def _parity_run(torch, params, cfg, prompt, acts, silu_tc):
     return torch.stack(toks), torch.stack(all_logits), qs, outs
 
 
+def _moved_softmax(torch, dev, softmax, d, seed: int = 2):
+    """A control: ``softmax`` with each nonzero probability moved by +-d (a
+    sign from ``seed``), or rounded to bf16 when ``d`` is None."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def fn(x, axis=-1, where=None):
+        p = softmax(x, axis=axis, where=where)
+        if d is None:
+            return p.to(torch.bfloat16).to(p.dtype)
+        sign = torch.randint(0, 2, p.shape, generator=gen,
+                             device=dev).to(p.dtype) * 2 - 1
+        return torch.where(p > 0, p + d * sign, p)
+    return fn
+
+
 def phase_parity(torch, dev):
     import numpy as np
     from repro_torch.configs import get_config
@@ -726,17 +885,7 @@ def phase_parity(torch, dev):
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64)),
                              dtype=torch.int32, device=dev)
     silu_tc = pack_table(load_table("sigmoid_wide", 16), dev)
-    def moved(softmax, d):
-        gen = torch.Generator(device=dev).manual_seed(2)
-
-        def fn(x, axis=-1, where=None):
-            p = softmax(x, axis=axis, where=where)
-            if d is None:
-                return p.to(torch.bfloat16).to(p.dtype)
-            sign = torch.randint(0, 2, p.shape, generator=gen,
-                                 device=dev).to(p.dtype) * 2 - 1
-            return torch.where(p > 0, p + d * sign, p)
-        return fn
+    moved = functools.partial(_moved_softmax, torch, dev)
 
     import dataclasses as dc
     with torch.inference_mode():
@@ -818,6 +967,333 @@ def phase_parity(torch, dev):
         f"every control beyond {SOFTMAX_ATOL} rejected")
 
 
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# The full-depth gate of the train phase.  At the random init the gradient
+# grows layer by layer toward the input (about 4e15 at 24 layers of full
+# width in float32 as in bf16, PERF.md), and a move of 1e-7 in one softmax
+# moves the loss and the input-side gradients far more than the 2-layer
+# parity sees.  So step 0 of the kernel path is held to the plain versions
+# (``ref``) at full depth within TRAIN_DEPTH_RATIO times the spread of
+# TRAIN_DEPTH_CONTROLS controls: ``ref`` with its softmax moved by a
+# seeded +-SOFTMAX_ATOL, the kernel's own bound.  Held: the loss, the
+# gradient norm and the norm of each layer's gradients, the embedding's
+# and the head's, each as the gap of its logarithm.
+TRAIN_DEPTH_CONTROLS = 3
+TRAIN_DEPTH_RATIO = 2.0
+
+
+def _grad_norms(torch, grads):
+    """log of the norms of each layer's gradients (over every stacked
+    leaf), the embedding's, the head's and the whole tree's."""
+    from repro_torch.train import global_norm
+    from repro_torch.tree import leaves
+    sq = sum(g.float().square().flatten(1).sum(1)
+             for st in grads["stages"].values() for g in leaves(st))
+    rest = [global_norm(grads[k]).view(1) ** 2
+            for k in ("embed", "lm_head")] + [global_norm(grads).view(1) ** 2]
+    return (0.5 * torch.cat([sq] + rest).log()).cpu()
+
+
+def _train_depth_arms(torch, dev, cfg):
+    """Step 0 of the train phase (its params and batch, full depth): loss
+    and log norms (``_grad_norms``) under ``cuda_fused``, ``ref`` and the
+    controls."""
+    import dataclasses as dc
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params, make_acts, param_specs
+    from repro_torch.models.transformer import dtype_of
+    from repro_torch.train.train_step import loss_and_grads
+
+    params = init_params(param_specs(cfg), 0, dtype_of(cfg.param_dtype),
+                         device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH).batch_at(0).items()}
+    ref = make_acts("ppa", "ref", dev)
+    arms = {"cuda_fused": make_acts("ppa", "cuda_fused", dev), "ref": ref}
+    for seed in range(TRAIN_DEPTH_CONTROLS):
+        arms[f"control {seed}"] = dc.replace(ref, softmax=_moved_softmax(
+            torch, dev, ref.softmax, SOFTMAX_ATOL, seed))
+    out = {}
+    for name, acts in arms.items():
+        loss, grads = loss_and_grads(cfg, acts, params, batch)
+        out[name] = (float(loss), _grad_norms(torch, grads))
+        del grads
+        _free(torch)
+    del params
+    _free(torch)
+    return out
+
+
+def _check_train_depth(torch, arms, step0):
+    """The full-depth gate: the ``cuda_fused`` arm, and the run's step 0
+    (``step0``: loss, gradient norm), within TRAIN_DEPTH_RATIO times the
+    controls' largest gap to ``ref``."""
+    import math
+    ref_loss, ref_norms = arms["ref"]
+    ctrl = [v for k, v in arms.items() if k.startswith("control")]
+    loss_env = max(abs(c[0] - ref_loss) for c in ctrl)
+    norm_env = torch.stack([(c[1] - ref_norms).abs() for c in ctrl]).amax(0)
+    loss, norms = arms["cuda_fused"]
+    gap = (norms - ref_norms).abs()
+    ratio = gap / norm_env
+    run_gap = (abs(step0[0] - ref_loss),
+               abs(math.log(step0[1]) - float(ref_norms[-1])))
+    names = [f"layer {i}" for i in range(len(norms) - 3)] + [
+        "embed", "lm_head", "all"]
+    worst = int(ratio.argmax())
+    log(f"[train] full depth, step 0: loss cuda_fused {loss:.6f}, run "
+        f"{step0[0]:.6f}, ref {ref_loss:.6f}, controls "
+        f"{[round(c[0], 6) for c in ctrl]}; gradient norm cuda_fused "
+        f"{math.exp(norms[-1]):.4e}, run {step0[1]:.4e}, ref "
+        f"{math.exp(ref_norms[-1]):.4e}, controls "
+        f"{[f'{math.exp(c[1][-1]):.4e}' for c in ctrl]}")
+    log(f"[train] full depth, |log| gaps of the norms to ref, input side "
+        f"first: cuda_fused {[round(float(g), 4) for g in gap]}; controls' "
+        f"largest {[round(float(e), 4) for e in norm_env]}; worst "
+        f"{names[worst]} {float(ratio[worst]):.3f} x its controls'")
+    bad = [names[i] for i in range(len(names))
+           if not gap[i] <= TRAIN_DEPTH_RATIO * norm_env[i]]
+    if abs(loss - ref_loss) > TRAIN_DEPTH_RATIO * loss_env:
+        bad.append(f"loss {abs(loss - ref_loss):.3e}")
+    if run_gap[0] > TRAIN_DEPTH_RATIO * loss_env:
+        bad.append(f"the run's step-0 loss {run_gap[0]:.3e}")
+    if not run_gap[1] <= TRAIN_DEPTH_RATIO * float(norm_env[-1]):
+        bad.append(f"the run's step-0 gradient norm {run_gap[1]:.3e}")
+    if bad:
+        raise AssertionError(
+            f"at full depth, beyond {TRAIN_DEPTH_RATIO} x the controls' "
+            f"gap to ref (loss {loss_env:.3e}): {bad}")
+
+
+def phase_train(torch, dev, card):
+    """Full-width training through the launcher's ``run_training``, its
+    step 0 held to the plain versions at full depth
+    (``_check_train_depth``); returns the launches of each kernel, in all
+    and at the training shapes."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (read_counts, read_shape_counts,
+                                     reset_counts)
+    from repro_torch.launch.train import run_training
+    from repro_torch.train import ScheduleCfg
+
+    cfg = get_config("internlm2-1.8b").replace(act_impl="ppa",
+                                               act_backend="cuda_fused")
+    if (cfg.param_dtype, cfg.compute_dtype) != ("float32", "bfloat16"):
+        raise AssertionError(f"train phase wants float32 master weights "
+                             f"and bf16 compute, got {cfg}")
+    _free(torch)
+    arms = _train_depth_arms(torch, dev, cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    out = run_training(
+        cfg, steps=TRAIN_STEPS, ckpt_dir=None, resume="none", ckpt_every=0,
+        batch_override=TRAIN_BATCH, seq_override=TRAIN_SEQ,
+        opt_kind="adamw", sched=ScheduleCfg(peak_lr=3e-4, warmup_steps=2),
+        log_every=1, device=dev)
+    counts, by_shape = read_counts(), read_shape_counts()
+    mem = torch.cuda.max_memory_allocated(dev)
+    losses, gnorms = out["losses"], out["grad_norms"]
+    plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+    # the forward kernels run again in each layer's recompute (remat)
+    forwards = 1 + (cfg.remat in ("dots", "full"))
+    steps = len(losses)
+    need = {"ppa_fused": cfg.n_layers * steps * forwards,
+            "softmax_ppa": cfg.n_layers * steps * forwards,
+            "softmax_ppa_bwd": cfg.n_layers * steps}
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shapes = {"ppa_fused": (TRAIN_BATCH, TRAIN_SEQ, cfg.d_ff),
+              "softmax_ppa": SOFTMAX_BWD_SHAPES["train"],
+              "softmax_ppa_bwd": SOFTMAX_BWD_SHAPES["train"]}
+    result = {k: {"total": counts[k]["launches"],
+                  "train": by_shape[k].get(shape, 0)}
+              for k, shape in shapes.items()}
+    log(f"[train] internlm2-1.8b 24L d_model 2048 vocab {cfg.vocab}, float32"
+        f" master weights, bf16 compute, act_impl=ppa act_backend="
+        f"{cfg.act_backend} remat={cfg.remat}, adamw, batch {TRAIN_BATCH} x "
+        f"seq {TRAIN_SEQ}: losses {losses}; grad norms before clipping "
+        f"{[f'{g:.3e}' for g in gnorms]}")
+    log(f"[train] step ms {[round(t, 2) for t in step_ms]}; median of steps"
+        f" 2-{steps} {med:.2f} ms = {tokens / med * 1e3:.1f} tokens/s; "
+        f"max_memory_allocated {mem / 2**30:.2f} GiB; card {card}")
+    log(f"[train] launches {result} (at least {need}: layers x steps, the "
+        f"forward kernels x{forwards} for the recompute under remat="
+        f"{cfg.remat}); plain calls {plain}")
+    # No descent gate at this depth: at the random init the gradient norm
+    # is about 1e16, nearly all of it in the first layers (the reference's
+    # own init does the same at every depth tests/test_torch_train.py
+    # holds it to), so clipping to 1 leaves every other gradient below
+    # adamw's eps and 8 steps move the loss by noise.  The depth is held
+    # by _check_train_depth; the descent gate is the smoke run's
+    # (phase_train_resume).
+    _check_train_depth(torch, arms, (losses[0], gnorms[0]))
+    if len(losses) != TRAIN_STEPS or not all(
+            map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"train losses {losses}, grad norms {gnorms}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran in training: {plain}")
+    for k, n in need.items():
+        if counts[k]["launches"] < n:
+            raise AssertionError(f"{k} launched {counts[k]['launches']} "
+                                 f"times in {steps} steps < {n}")
+    _free(torch)
+    return result
+
+
+# The train parity gates: the largest gradient gap between the plain arm
+# and a kernel arm, each leaf's gap over its largest gradient, and their
+# loss gap over the plain arm's loss (phase_train_parity).
+TRAIN_PARITY_LIMIT = 2.0 ** -8
+TRAIN_PARITY_LOSS_REL = 1e-6
+
+
+def _grad_gap(torch, a, b) -> float:
+    """The largest gap between two gradient trees, each leaf's over the
+    largest magnitude of ``b``'s."""
+    from repro_torch.tree import leaves
+    return max(float((x - y).abs().max()) / float(y.abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def phase_train_parity(torch, dev):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params, make_acts, param_specs
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves
+
+    cfg = _cut(get_config("internlm2-1.8b"), 2).replace(
+        act_impl="ppa", compute_dtype="float32")
+    params = init_params(param_specs(cfg), 0, device=dev)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch_at(0).items()}
+    arms = {name: loss_and_grads(cfg, make_acts("ppa", name, dev), params,
+                                 batch) for name in PARITY_ARMS}
+    ref_acts = make_acts("ppa", "ref", dev)
+    ref_loss, ref_grads = arms["ref"]
+    gaps = {}
+    for name in ("cuda_int", "cuda_fused"):
+        loss, grads = arms[name]
+        gaps[name] = (abs(float(loss) - float(ref_loss)),
+                      _grad_gap(torch, grads, ref_grads))
+    for name, d in PARITY_CONTROLS.items():
+        acts = dc.replace(ref_acts, softmax=_moved_softmax(
+            torch, dev, ref_acts.softmax, d))
+        loss, grads = loss_and_grads(cfg, acts, params, batch)
+        gaps[f"control {name}"] = (abs(float(loss) - float(ref_loss)),
+                                   _grad_gap(torch, grads, ref_grads))
+        del grads
+    for name, (dl, dg) in gaps.items():
+        log(f"[train_parity] {name} vs ref: loss gap {dl:.3e} (loss "
+            f"{float(ref_loss):.6f}); largest gradient gap {dg:.3e} of its "
+            "leaf's largest gradient")
+    (li, gi), (lf, gf) = arms["cuda_int"], arms["cuda_fused"]
+    same = bool(torch.equal(li, lf)) and all(
+        torch.equal(x, y) for x, y in zip(leaves(gi), leaves(gf)))
+    if not same:
+        raise AssertionError(
+            "cuda_int and cuda_fused differ: loss "
+            f"{float(li)} vs {float(lf)}, gradient gap "
+            f"{_grad_gap(torch, gi, gf)}")
+    # The bound.  cuda_int and cuda_fused share every kernel but the PPA
+    # activation's, which is exact: their loss and gradients must be
+    # equal.  Against ref they differ in the softmax kernels (its forward
+    # within SOFTMAX_ATOL, its backward within SOFTMAX_BWD_REL), which move
+    # some quantized silu inputs by one step of their grid, as in the
+    # serving parity.  Each gradient leaf is held to TRAIN_PARITY_LIMIT of
+    # its largest magnitude, the loss to TRAIN_PARITY_LOSS_REL of ref's.
+    # The controls (the ref arm with its softmax moved) calibrate the
+    # limits, and those beyond SOFTMAX_ATOL must exceed both.  On an H100
+    # the kernels gave gradient gaps of 1.48e-3 and loss gaps of 0, the
+    # controls beyond the bound 3.8e-2 to 4.0e-1 and 2.3e-6 to 1.8e-5 of
+    # the loss, at its edge 4.7e-3 and 2.4e-7 (PERF.md).
+    loss_limit = TRAIN_PARITY_LOSS_REL * abs(float(ref_loss))
+    for name in ("cuda_int", "cuda_fused"):
+        if not gaps[name][1] <= TRAIN_PARITY_LIMIT:
+            raise AssertionError(f"{name}: gradient gap {gaps[name][1]} > "
+                                 f"{TRAIN_PARITY_LIMIT}")
+        if not gaps[name][0] <= loss_limit:
+            raise AssertionError(f"{name}: loss gap {gaps[name][0]} > "
+                                 f"{loss_limit}")
+    for name, d in PARITY_CONTROLS.items():
+        dl, dg = gaps[f"control {name}"]
+        if (d is None or d > SOFTMAX_ATOL) and not (
+                dg > TRAIN_PARITY_LIMIT and dl > loss_limit):
+            raise AssertionError(
+                f"control {name}: gradient gap {dg} (limit "
+                f"{TRAIN_PARITY_LIMIT}), loss gap {dl} (limit "
+                f"{loss_limit}): not beyond both")
+    log(f"[train_parity] internlm2-1.8b 2L float32, batch {TRAIN_BATCH} x "
+        f"seq {TRAIN_SEQ}: cuda_int and cuda_fused equal (loss and every "
+        f"gradient leaf); ref vs either {gaps['cuda_fused'][1]:.3e} <= "
+        f"{TRAIN_PARITY_LIMIT} of each leaf's largest gradient and a loss "
+        f"gap {gaps['cuda_fused'][0]:.3e} <= {TRAIN_PARITY_LOSS_REL} x loss"
+        f" = {loss_limit:.3e}; every control beyond {SOFTMAX_ATOL} "
+        "rejected by both")
+    del arms
+    _free(torch)
+
+
+def phase_train_resume(torch, dev):
+    """``launch/train.py`` (its ``main``) on the smoke config with PPA
+    activations on the card: 30 steps, a checkpoint every 2.  The loss
+    descends, and a run that exits after step 3 and then resumes gives the
+    uninterrupted run's losses, bit for bit."""
+    import shutil
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.launch.train import main as train_main
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, *extra):
+        return train_main(
+            ["--arch", "internlm2-1.8b", "--smoke", "--act-impl", "ppa",
+             "--steps", "30", "--batch", "4", "--seq", "64", "--opt",
+             "adamw", "--ckpt-every", "2", "--device", str(dev),
+             "--ckpt-dir", str(root / name), *extra])
+    try:
+        reset_counts()
+        whole = run("whole")["losses"]
+        try:
+            run("crash", "--simulate-crash-at", "3")
+        except SystemExit as e:
+            if e.code != 42:
+                raise
+        else:
+            raise AssertionError("the run did not crash at step 3")
+        resumed = run("crash")["losses"]
+        counts = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not whole[-1] < whole[0]:
+        raise AssertionError(f"the smoke run's loss did not descend: {whole}")
+    if resumed != whole[2:]:
+        raise AssertionError(f"resumed losses {resumed} != uninterrupted "
+                             f"{whole[2:]}")
+    plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+    if any(plain.values()) or not all(
+            counts[k]["launches"] for k in ("ppa_fused", "softmax_ppa",
+                                            "softmax_ppa_bwd")):
+        raise AssertionError(f"the smoke runs did not run the kernels "
+                             f"alone: {counts}")
+    log(f"[train_resume] smoke config, act_impl=ppa: uninterrupted losses "
+        f"{whole[0]:.5f} -> {whole[-1]:.5f} over {len(whole)} steps; crashed"
+        f" after step 3, resumed from step 2: {len(resumed)} losses equal "
+        "to the uninterrupted run's bit for bit")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -826,6 +1302,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} cuda "
@@ -847,22 +1324,31 @@ def main() -> int:
             return None
 
     run("build", phase_build)
+    train = {}
     if not failed:
         rows = run("kernels", phase_kernels, torch, dev) or []
         launches.update(run("serve", phase_serve, torch, dev, card) or {})
         launches["ppa_int"] = run("serve_int", phase_serve_int, torch, dev)
         run("parity", phase_parity, torch, dev)
+        train = run("train", phase_train, torch, dev, card) or {}
+        launches["softmax_ppa_bwd"] = train.get("softmax_ppa_bwd")
+        run("train_parity", phase_train_parity, torch, dev)
+        run("train_resume", phase_train_resume, torch, dev)
+    log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
+    paths = {"ppa_int": "serve internlm2-1.8b 2L cuda_int",
+             "softmax_ppa_bwd": "train internlm2-1.8b 24L cuda_fused"}
     for r in rows:
         r["launches"] = launches[r["name"]]["total"]
         for label, t in r["shapes"].items():
             if label in launches[r["name"]]:
                 t["launches"] = launches[r["name"]][label]
-        r["path"] = ("serve internlm2-1.8b 2L cuda_int"
-                     if r["name"] == "ppa_int"
-                     else "serve internlm2-1.8b 24L cuda_fused")
+        r["path"] = paths.get(r["name"], "serve internlm2-1.8b 24L "
+                                         "cuda_fused")
+        if r["name"] in train and r["name"] != "softmax_ppa_bwd":
+            r["launches_train"] = train[r["name"]]["total"]
     log(card_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

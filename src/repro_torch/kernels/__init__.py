@@ -1,5 +1,6 @@
-"""repro_torch.kernels — the PPA activation datapath on Hopper: three CUDA
-kernels written by hand (``csrc/``), their plain PyTorch versions, and the
+"""repro_torch.kernels — the PPA activation datapath on Hopper: CUDA
+kernels written by hand (``csrc/``: the integer and fused PPA kernels, the
+softmax and its backward), their plain PyTorch versions, and the
 model-facing ops with the backend registry."""
 
 from typing import Dict
@@ -15,10 +16,12 @@ __all__ = ["Backend", "TableConsts", "available_backends", "check_int32",
            "read_counts", "read_shape_counts", "reset_counts"]
 
 _COUNTS = {"ppa_int": ppa.counts, "ppa_fused": fused.counts,
-           "softmax_ppa": softmax_ppa.counts, "ref": ref.counts}
+           "softmax_ppa": softmax_ppa.counts,
+           "softmax_ppa_bwd": softmax_ppa.bwd_counts, "ref": ref.counts}
 _SHAPE_COUNTS = {"ppa_int": ppa.shape_counts,
                  "ppa_fused": fused.shape_counts,
-                 "softmax_ppa": softmax_ppa.shape_counts}
+                 "softmax_ppa": softmax_ppa.shape_counts,
+                 "softmax_ppa_bwd": softmax_ppa.bwd_shape_counts}
 
 
 def reset_counts() -> None:
@@ -32,7 +35,7 @@ def reset_counts() -> None:
 
 
 def read_shape_counts() -> Dict[str, Dict[tuple, int]]:
-    """{kernel: {input shape: launches}} for the three kernels."""
+    """{kernel: {input shape: launches}} for the four kernels."""
     return {name: dict(c) for name, c in _SHAPE_COUNTS.items()}
 
 

@@ -127,7 +127,9 @@ def ptxas_log(name: str) -> str:
 
 def check_cuda_input(t, dtypes, what: str) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
-    that does not need a gradient (the kernels are forward-only)."""
+    that records no autograd graph: a kernel's gradient is an
+    ``autograd.Function`` around it (kernels/ops.py), so the wrappers run
+    inside its forward or backward, never on a tensor that needs one."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
@@ -136,8 +138,8 @@ def check_cuda_input(t, dtypes, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
     if t.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
-            f"{what}: the CUDA kernel is forward-only; its backward is not "
-            "ported yet")
+            f"{what}: the CUDA kernel takes no tensor that needs a "
+            "gradient; call it through the autograd ops of kernels/ops.py")
 
 
 def vector_split(numel: int, itemsize: int, aligned: bool) -> int:

@@ -22,11 +22,11 @@ Backends (:func:`available_backends`):
                (csrc/ppa_fused.cu)
 
 With ``cuda_int`` or ``cuda_fused`` the softmax runs the softmax kernel
-(csrc/softmax_ppa.cu), also when its input needs a gradient; the backward
-is the straight-through one of the reference composition around the
-backend's ``ppa_act``, on CPU tensors only until the card has a softmax
-backward.  The kernel wrappers run their plain versions on CPU tensors.
-All backends are bit-identical; softmax agrees within 1e-6.
+(csrc/softmax_ppa.cu), also when its input needs a gradient; its backward
+is the softmax backward kernel of the same source, the closed form of the
+reference composition's straight-through vjp.  The kernel wrappers run
+their plain versions on CPU tensors.  All backends are bit-identical;
+softmax agrees within 1e-6.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from ..device import resolve_device
 from .fused import condition_f32, eval_ref, ppa_fused_apply
 from .ppa import ppa_eval_int
 from .ref import horner_int
-from .softmax_ppa import softmax_ppa, softmax_ppa_plain
+from .softmax_ppa import softmax_ppa, softmax_ppa_bwd, softmax_ppa_plain
 
 __all__ = ["Backend", "TableConsts", "available_backends", "check_int32",
            "get_backend", "make_ppa_fn", "pack_table", "plan_ints",
@@ -263,40 +263,40 @@ def ppa_gate_act(tc: TableConsts, x: torch.Tensor, backend: str = "ref"
     return _apply(tc, x, backend, True)
 
 
-def _softmax_kernel(tc: TableConsts, x: torch.Tensor, axis: int,
-                    where: Optional[torch.Tensor]) -> torch.Tensor:
+def _last_axis(x: torch.Tensor, axis: int, where: Optional[torch.Tensor]):
+    """``x`` as contiguous float32 with ``axis`` last, and ``where`` moved
+    the same way, left unexpanded: the kernels broadcast it."""
     xf = torch.movedim(x.to(torch.float32), axis, -1).contiguous()
-    if where is not None:   # left unexpanded: the kernel broadcasts it
+    if where is not None:
         where = torch.movedim(where.reshape(
             (1,) * (x.dim() - where.dim()) + tuple(where.shape)), axis, -1)
+    return xf, where
+
+
+def _softmax_kernel(tc: TableConsts, x: torch.Tensor, axis: int,
+                    where: Optional[torch.Tensor]) -> torch.Tensor:
+    xf, where = _last_axis(x, axis, where)
     y = softmax_ppa(xf, tc, where)
     return torch.movedim(y, -1, axis).to(x.dtype)
 
 
 class _SoftmaxSTE(torch.autograd.Function):
-    """The softmax kernel forward; the backward of the reference
-    composition around the backend's straight-through ``ppa_act``."""
+    """The softmax kernel forward; the softmax backward kernel backward
+    (each its plain version on CPU tensors)."""
 
     @staticmethod
-    def forward(ctx, x, tc, where, axis, backend):
+    def forward(ctx, x, tc, where, axis):
         ctx.save_for_backward(x, where)
-        ctx.tc, ctx.axis, ctx.backend = tc, axis, backend
+        ctx.tc, ctx.axis = tc, axis
         return _softmax_kernel(tc, x, axis, where)
 
     @staticmethod
     def backward(ctx, g):
         x, where = ctx.saved_tensors
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "ppa_softmax: the softmax kernel is forward-only; its "
-                "backward is not ported to the card yet")
-        tc, backend = ctx.tc, ctx.backend
-        with torch.enable_grad():
-            v = x.detach().requires_grad_(True)
-            y = softmax_ppa_plain(v, tc, where, ctx.axis,
-                                  pow2=lambda f: ppa_act(tc, f, backend))
-            (dx,) = torch.autograd.grad(y, v, g)
-        return dx, None, None, None, None
+        xf, where = _last_axis(x.detach(), ctx.axis, where)
+        gf, _ = _last_axis(g, ctx.axis, None)
+        dx = softmax_ppa_bwd(xf, gf, ctx.tc, where)
+        return torch.movedim(dx, -1, ctx.axis).to(x.dtype), None, None, None
 
 
 def ppa_softmax(tc_exp2: TableConsts, x: torch.Tensor, *, axis: int = -1,
@@ -305,9 +305,9 @@ def ppa_softmax(tc_exp2: TableConsts, x: torch.Tensor, *, axis: int = -1,
     """Softmax with the exp through the exp2_frac table.
 
     With a kernel backend it is the softmax kernel (its plain version on a
-    CPU tensor), and an input that needs a gradient gets the reference
-    composition's straight-through backward (on the card it raises: the
-    kernel is forward-only).  Otherwise it is the reference composition
+    CPU tensor), and an input that needs a gradient gets the softmax
+    backward kernel, the closed form of the reference composition's
+    straight-through vjp.  Otherwise it is the reference composition
     around ``ppa_act``.
     """
     if not get_backend(backend).kernel_softmax:
@@ -315,7 +315,7 @@ def ppa_softmax(tc_exp2: TableConsts, x: torch.Tensor, *, axis: int = -1,
             x, tc_exp2, where, axis,
             pow2=lambda f: ppa_act(tc_exp2, f, backend))
     if torch.is_grad_enabled() and x.requires_grad:
-        return _SoftmaxSTE.apply(x, tc_exp2, where, axis, backend)
+        return _SoftmaxSTE.apply(x, tc_exp2, where, axis)
     return _softmax_kernel(tc_exp2, x, axis, where)
 
 

@@ -1,5 +1,5 @@
 """Row softmax with the exp through the ``exp2_frac`` PPA table
-(``csrc/softmax_ppa.cu``), with an optional boolean mask.
+(``csrc/softmax_ppa.cu``), with an optional boolean mask, and its backward.
 
 Counterpart of ``repro/kernels/softmax_ppa.py::softmax_ppa_2d`` plus the
 ``where`` mask of ``repro/kernels/ops.py::ppa_softmax``, which attention
@@ -7,6 +7,11 @@ needs.  :func:`softmax_ppa_plain` is the reference's composition, the plain
 version the wrapper runs on a CPU tensor.
 
     exp(x - m) = 2**((x-m)*log2e) = 2**k * T(f),  k = floor(s), f = s - k
+
+:func:`softmax_ppa_bwd` is ``jax.vjp`` of the reference's ``ppa_softmax``
+(straight-through: the table's derivative is the exact one of 2^f) in
+closed form, a kernel of the same source; :func:`softmax_ppa_bwd_plain` is
+the closed form in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -22,18 +27,23 @@ import torch
 from .build import check_cuda_input, get_lib, raise_on_error, stream_of
 from .fused import condition_f32, eval_ref
 
-__all__ = ["counts", "route", "shape_counts", "softmax_ppa",
-           "softmax_ppa_plain"]
+__all__ = ["bwd_counts", "bwd_shape_counts", "counts", "route",
+           "shape_counts", "softmax_ppa", "softmax_ppa_bwd",
+           "softmax_ppa_bwd_plain", "softmax_ppa_plain"]
 
 #: kernel launches and plain-version calls
 counts = {"launches": 0, "plain": 0}
 #: kernel launches by input shape
 shape_counts: collections.Counter = collections.Counter()
+#: the same for the backward
+bwd_counts = {"launches": 0, "plain": 0}
+bwd_shape_counts: collections.Counter = collections.Counter()
 
 _LOG2E = float(np.float32(math.log2(math.e)))
 _CLAMP = -24.0  # 2^-24 is below every table's output ULP
 _MAX_DIMS = 8   # leading dims the kernel's mask index takes (SOFTMAX_MAX_DIMS)
 _LANE_VALUES = 64   # scores a lane holds in registers on the warp path
+_BWD_LANE_VALUES = 32   # the backward's: it holds x, g and e (3 a score)
 _c = ctypes.c_void_p
 
 
@@ -64,17 +74,19 @@ def softmax_ppa_plain(x: torch.Tensor, tc, where: Optional[torch.Tensor] = None,
     return (e / torch.clamp_min(denom, 1e-30)).to(x.dtype)
 
 
-def route(n: int, aligned: bool) -> Tuple[int, int]:
+def route(n: int, aligned: bool, lane_values: int = _LANE_VALUES
+          ) -> Tuple[int, int]:
     """The kernel's layout for rows of ``n`` scores: ``(vec, items)`` for
     one warp per row, each lane holding ``items`` runs of ``vec``
     consecutive scores (``vec`` 4 loads 16 bytes, for rows of a multiple
     of 4 that start 16-byte aligned), or ``(0, 0)`` for one block per row
-    when a row does not fit in a warp's registers."""
+    when a row does not fit in ``lane_values`` registers a lane (the
+    forward's 64, the backward's 32)."""
     vec = 4 if n % 4 == 0 and aligned else 1
     items = 1
     while 32 * vec * items < n:
         items *= 2
-    return (vec, items) if vec * items <= _LANE_VALUES else (0, 0)
+    return (vec, items) if vec * items <= lane_values else (0, 0)
 
 
 def _mask_index(mask: torch.Tensor, lead: int):
@@ -95,16 +107,66 @@ def _mask_index(mask: torch.Tensor, lead: int):
     return out
 
 
+_ARGTYPES = [_c, _c, ctypes.c_int, _c, _c, _c, ctypes.c_longlong, _c,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_int, _c, _c, ctypes.c_int, _c, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, _c]
+
+
 def _lib() -> ctypes.CDLL:
     lib = get_lib("softmax_ppa")
     if lib.softmax_ppa_launch.argtypes is None:
-        lib.softmax_ppa_launch.argtypes = [
-            _c, _c, ctypes.c_int, _c, _c, _c, ctypes.c_longlong, _c,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            _c, _c, ctypes.c_int, _c, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, _c]
+        lib.softmax_ppa_launch.argtypes = _ARGTYPES
         lib.softmax_ppa_launch.restype = ctypes.c_int
+        lib.softmax_ppa_bwd_launch.argtypes = [_c] + _ARGTYPES
+        lib.softmax_ppa_bwd_launch.restype = ctypes.c_int
     return lib
+
+
+def _launch_args(x: torch.Tensor, tc, where: Optional[torch.Tensor],
+                 what: str, lane_values: int, *others: torch.Tensor):
+    """Check a launch's inputs; return the output and the arguments both
+    launch functions take after their inputs (mask, mask index, output,
+    rows, row length, layout, table, stream)."""
+    if tc.naf != "exp2_frac":
+        raise ValueError(f"softmax needs the exp2_frac table, got {tc.naf}")
+    for t in (x, *others):
+        check_cuda_input(t, (torch.float32,), what)
+        if t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"{what}: tensors of shape {tuple(x.shape)} "
+                             f"on {x.device} expected")
+    if tc.starts.device != x.device:
+        raise ValueError(f"{what}: table on {tc.starts.device}, "
+                         f"input on {x.device}")
+    lead = max(x.dim() - 1, 0)
+    if lead > _MAX_DIMS:
+        raise ValueError(f"{what}: at most {_MAX_DIMS + 1} dims, got "
+                         f"{x.dim()}")
+    n = x.shape[-1] if x.dim() else 1
+    rows = x.numel() // n if n else 0
+    if rows >= 1 << 31 or n >= 1 << 31:
+        raise ValueError(f"{what}: rows and row length must fit in 31 bits")
+    mask, dims, col_stride = None, [], 0
+    if where is not None:
+        if where.dtype != torch.bool or where.device != x.device:
+            raise TypeError(f"{what}: where must be a bool tensor on the "
+                            "input's device")
+        mask = torch.broadcast_to(where, x.shape)     # a view: no copy
+        dims = _mask_index(mask, lead) if x.dim() else []
+        col_stride = mask.stride(-1) if x.dim() else 0
+    cols = list(zip(*dims)) or [(), (), ()]
+    inner, size, stride = ((ctypes.c_longlong * _MAX_DIMS)(*c) for c in cols)
+    out = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, out, *others))
+    vec, items = route(n, aligned, lane_values)
+    plan = (ctypes.c_int * len(tc.plan_ints))(*tc.plan_ints)
+    # each ctypes.cast keeps its array alive as long as the pointer
+    return out, (None if mask is None else mask.data_ptr(), len(dims),
+                 ctypes.cast(inner, _c), ctypes.cast(size, _c),
+                 ctypes.cast(stride, _c), col_stride, out.data_ptr(), rows,
+                 n, vec, items, tc.idx_lut.data_ptr(), tc.coefs.data_ptr(),
+                 tc.coefs.numel(), ctypes.cast(plan, _c), tc.lo, tc.hi,
+                 tc.w_in, tc.w_out, stream_of(x))
 
 
 def softmax_ppa(x: torch.Tensor, tc, where: Optional[torch.Tensor] = None
@@ -115,43 +177,68 @@ def softmax_ppa(x: torch.Tensor, tc, where: Optional[torch.Tensor] = None
     The kernel reads ``where`` through its broadcast strides, unexpanded."""
     if x.device.type == "cpu":
         return softmax_ppa_plain(x, tc, where)
-    if tc.naf != "exp2_frac":
-        raise ValueError(f"softmax needs the exp2_frac table, got {tc.naf}")
-    check_cuda_input(x, (torch.float32,), "softmax_ppa")
-    if tc.starts.device != x.device:
-        raise ValueError(f"softmax_ppa: table on {tc.starts.device}, "
-                         f"input on {x.device}")
-    lead = max(x.dim() - 1, 0)
-    if lead > _MAX_DIMS:
-        raise ValueError(f"softmax_ppa: at most {_MAX_DIMS + 1} dims, got "
-                         f"{x.dim()}")
-    n = x.shape[-1] if x.dim() else 1
-    rows = x.numel() // n if n else 0
-    if rows >= 1 << 31 or n >= 1 << 31:
-        raise ValueError("softmax_ppa: rows and row length must fit in 31 "
-                         "bits")
-    mask, dims, col_stride = None, [], 0
-    if where is not None:
-        if where.dtype != torch.bool or where.device != x.device:
-            raise TypeError("softmax_ppa: where must be a bool tensor on "
-                            "the input's device")
-        mask = torch.broadcast_to(where, x.shape)     # a view: no copy
-        dims = _mask_index(mask, lead) if x.dim() else []
-        col_stride = mask.stride(-1) if x.dim() else 0
-    cols = list(zip(*dims)) or [(), (), ()]
-    inner, size, stride = ((ctypes.c_longlong * _MAX_DIMS)(*c) for c in cols)
-    y = torch.empty_like(x)
-    vec, items = route(n, x.data_ptr() % 16 == 0)
-    plan = (ctypes.c_int * len(tc.plan_ints))(*tc.plan_ints)
+    y, args = _launch_args(x, tc, where, "softmax_ppa", _LANE_VALUES)
     with torch.cuda.device(x.device):
-        rc = _lib().softmax_ppa_launch(
-            x.data_ptr(), None if mask is None else mask.data_ptr(),
-            len(dims), ctypes.cast(inner, _c), ctypes.cast(size, _c),
-            ctypes.cast(stride, _c), col_stride, y.data_ptr(), rows, n,
-            vec, items, tc.idx_lut.data_ptr(), tc.coefs.data_ptr(),
-            tc.coefs.numel(), ctypes.cast(plan, _c), tc.lo, tc.hi, tc.w_in,
-            tc.w_out, stream_of(x))
+        rc = _lib().softmax_ppa_launch(x.data_ptr(), *args)
     raise_on_error(rc, "softmax_ppa")
     counts["launches"] += 1
     shape_counts[tuple(x.shape)] += 1
     return y
+
+
+def softmax_ppa_bwd_plain(x: torch.Tensor, g: torch.Tensor, tc,
+                          where: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The gradient of :func:`softmax_ppa_plain` over the last axis at
+    ``x`` against ``g``, in closed form (``e``, ``D`` and ``y`` are the
+    forward's):
+
+        c    = sum_i g_i y_i
+        d_j  = (where_j and s_j > -24) ? (g_j - c) / D * 2^s_j : 0
+        dx_j = d_j - [where_j and x_j == m] / n_max * sum_i d_i
+
+    The last term is the gradient through the row max, shared equally
+    among its ties, as ``jnp.max`` shares it.  An all-masked row gives 0."""
+    bwd_counts["plain"] += 1
+    if tc.naf != "exp2_frac":
+        raise ValueError(f"softmax needs the exp2_frac table, got {tc.naf}")
+    xf = x.to(torch.float32)
+    gf = g.to(torch.float32)
+    if where is not None:
+        xf = torch.where(where, xf, -math.inf)
+    m = torch.amax(xf, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    s = torch.clamp_min((xf - m) * _LOG2E, _CLAMP)
+    k = torch.floor(s)
+    e = condition_f32(tc, s - k, eval_ref, False) * torch.exp2(k)
+    live = s > _CLAMP
+    tie = xf == m
+    if where is not None:
+        e = torch.where(where, e, 0.0)
+        live = live & where
+        tie = tie & where
+    den = torch.clamp_min(torch.sum(e, dim=-1, keepdim=True), 1e-30)
+    c = torch.sum(gf * (e / den), dim=-1, keepdim=True)
+    d = torch.where(live, (gf - c) / den * torch.exp2(s), 0.0)
+    n_max = torch.clamp_min(tie.sum(dim=-1, keepdim=True), 1)
+    share = torch.sum(d, dim=-1, keepdim=True) / n_max
+    return torch.where(tie, d - share, d)
+
+
+def softmax_ppa_bwd(x: torch.Tensor, g: torch.Tensor, tc,
+                    where: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The softmax's gradient over the last axis (see
+    :func:`softmax_ppa_bwd_plain`): ``x`` the forward's input and ``g`` the
+    gradient of its output, contiguous float32 of one shape, ``where`` as
+    for :func:`softmax_ppa`.  The kernel recomputes the forward's row max,
+    exponentials and sum rather than reading them."""
+    if x.device.type == "cpu":
+        return softmax_ppa_bwd_plain(x, g, tc, where)
+    dx, args = _launch_args(x, tc, where, "softmax_ppa_bwd",
+                            _BWD_LANE_VALUES, g)
+    with torch.cuda.device(x.device):
+        rc = _lib().softmax_ppa_bwd_launch(x.data_ptr(), g.data_ptr(), *args)
+    raise_on_error(rc, "softmax_ppa_bwd")
+    bwd_counts["launches"] += 1
+    bwd_shape_counts[tuple(x.shape)] += 1
+    return dx

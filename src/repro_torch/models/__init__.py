@@ -1,13 +1,13 @@
-"""repro_torch.models — the dense decoder (``dec`` stages) the served model
-is built from, with its activations through an ActBundle."""
+"""repro_torch.models — the dense decoder (``dec`` stages) the served and
+trained model is built from, with its activations through an ActBundle."""
 
 from .activations import ActBundle, make_acts, ppa_table_jobs
 from .common import P, init_params, params_from_jax
 from .config import ModelCfg, StageCfg
-from .transformer import (decode_step, forward_hidden, init_cache,
+from .transformer import (decode_step, forward_hidden, init_cache, loss_fn,
                           param_specs, prefill, prepare_params)
 
 __all__ = ["ActBundle", "ModelCfg", "P", "StageCfg",
            "decode_step", "forward_hidden", "init_cache", "init_params",
-           "make_acts", "param_specs", "params_from_jax", "ppa_table_jobs",
-           "prefill", "prepare_params"]
+           "loss_fn", "make_acts", "param_specs", "params_from_jax",
+           "ppa_table_jobs", "prefill", "prepare_params"]

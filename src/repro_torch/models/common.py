@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import map_tree
 
 __all__ = ["P", "init_params", "params_from_jax", "map_tree"]
 
@@ -33,13 +34,6 @@ class P:
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
-
-
-def map_tree(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested dict, keys in sorted order."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
 
 
 def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
@@ -70,9 +64,12 @@ def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
 
 
 def params_from_jax(tree, device=None):
-    """Carry a parameter tree of the JAX package over: every leaf (numpy or
-    anything ``np.asarray`` takes) becomes a tensor of the same shape,
-    layout and dtype on ``device`` (None: the card)."""
+    """Carry a parameter tree of the JAX package over, or its train state
+    (``train_init``'s ``{"step", "opt": {"count", "mu"}}``, int8 moments
+    and their scales included): every leaf (numpy or anything
+    ``np.asarray`` takes) becomes a tensor of the same shape, layout and
+    dtype on ``device`` (None: the card)."""
     dev = resolve_device(device)
     return map_tree(
         lambda a: torch.as_tensor(np.array(a), device=dev), tree)
+

@@ -1,17 +1,18 @@
 """Shared model building blocks: RMSNorm, rotary embeddings, token
-embedding and the LM head.  Cross entropy waits for the training slice."""
+embedding, the LM head and the chunked cross-entropy loss."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import P
 
 __all__ = ["rmsnorm_params", "rmsnorm", "rope", "rope_freqs",
-           "embed_lookup", "lm_head_logits"]
+           "embed_lookup", "lm_head_logits", "cross_entropy_chunked"]
 
 
 def rmsnorm_params(dim: int, layers: Optional[int] = None) -> dict:
@@ -58,3 +59,40 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def lm_head_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x: (..., E) @ (V, E)^T -> (..., V)."""
     return x @ table.transpose(0, 1)
+
+
+def _chunk_nll(xs: torch.Tensor, head: torch.Tensor, ls: torch.Tensor,
+               ms: torch.Tensor) -> torch.Tensor:
+    logits = lm_head_logits(xs.to(torch.float32), head.to(torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ls.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * ms)
+
+
+def cross_entropy_chunked(x: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, *,
+                          mask: Optional[torch.Tensor] = None,
+                          num_chunks: int = 8
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross entropy without materializing the full (B, T, V) logits.
+
+    x: (B, T, E) final hidden, head: (V, E), labels: (B, T) int.  The
+    sequence is cut into ``num_chunks`` chunks (fewer when T does not
+    divide: the largest count that does); each chunk's float32 logits
+    against the float32 head are recomputed in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the reference).
+    Returns (mean_nll, denom)."""
+    b, t, _ = x.shape
+    while t % num_chunks:
+        num_chunks -= 1
+    if mask is None:
+        mask = torch.ones((b, t), dtype=torch.float32, device=x.device)
+    c = t // num_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(num_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_nll, x[:, sl], head,
+                                   labels[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    return total / denom, denom

@@ -1,5 +1,5 @@
 """Model assembly for the ``dec`` stage (dense decoder): parameter specs,
-prefill and decode.
+prefill, decode and the training loss.
 
 Counterpart of the ``dec`` path of ``repro/models/transformer.py``.  The
 reference scans a stacked layer axis under ``jax.lax.scan``; here
@@ -7,13 +7,24 @@ reference scans a stacked layer axis under ``jax.lax.scan``; here
 splits the stack into per-layer views, which a Python loop walks.  The
 decode cache keeps the reference's stacked layout (L, B, S, Hk, D) per
 stage and is updated in place.
+
+:func:`loss_fn` casts the (float32 master) parameters inside the autograd
+graph, as the reference's ``_cast_params``, and splits each stacked leaf
+with ``unbind``, whose backward stacks the layers' gradients once: the
+gradients land on the stacked float32 leaves.  ``cfg.remat`` recomputes
+each layer in the backward: ``"full"`` all of it, ``"dots"`` all but the
+outputs of its matrix products without batch dimensions (the reference's
+``checkpoint_dots_with_no_batch_dims``), ``"none"`` nothing.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from .activations import ActBundle
@@ -21,11 +32,12 @@ from .attention import (AttnCfg, attn_params, attention, decode_attention,
                         init_kv_cache)
 from .common import P, map_tree
 from .config import ModelCfg, StageCfg
-from .layers import embed_lookup, lm_head_logits, rmsnorm, rmsnorm_params
+from .layers import (cross_entropy_chunked, embed_lookup, lm_head_logits,
+                     rmsnorm, rmsnorm_params)
 from .mlp import gated_mlp, gated_mlp_params
 
 __all__ = ["param_specs", "prepare_params", "forward_hidden", "init_cache",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "loss_fn"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -209,3 +221,67 @@ def decode_step(params: dict, cfg: ModelCfg, cache: dict,
                               gate=cfg.gate)
     h = rmsnorm(h, params["ln_f"])
     return lm_head_logits(h, _head(params))[:, 0], cache
+
+
+# ---------------------------------------------------------------- training
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Save the outputs of matrix products without batch dimensions (a
+    batched product of one matrix is one); recompute everything else."""
+    if func in _DOTS or (func is torch.ops.aten.bmm.default
+                         and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"unknown remat {remat!r}")
+
+
+def _train_layer(cfg, acfg, acts, positions, h, p):
+    h = h + attention(p["attn"], acfg, rmsnorm(h, p["ln1"]), acts,
+                      positions=positions)
+    return h + gated_mlp(p["mlp"], rmsnorm(h, p["ln2"]), acts, gate=cfg.gate)
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """Per-layer dicts of a stacked tree, through ``unbind``."""
+    parts = map_tree(lambda t: t.unbind(0), tree)
+    return [map_tree(lambda u, j=j: u[j], parts) for j in range(n)]
+
+
+def loss_fn(params: dict, cfg: ModelCfg, batch: dict, acts: ActBundle
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"
+    (B, T) int, optional "loss_mask"}) under the raw (float32 master)
+    ``params``: (loss, {"nll", "aux", "denom"}), differentiable in the
+    params."""
+    _check_dec(cfg)
+    dt = dtype_of(cfg.compute_dtype)
+    p = map_tree(lambda t: t.to(dt) if t.is_floating_point() else t, params)
+    h = embed_lookup(p["embed"], batch["tokens"])
+    b, t, _ = h.shape
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=h.device).expand(b, t)
+    for i, st in enumerate(cfg.stages):
+        layer = _remat(functools.partial(_train_layer, cfg, _attn_cfg(cfg),
+                                         acts, positions), cfg.remat)
+        for lp in _unstack(p["stages"][_stage_key(i, st)], st.n_layers):
+            h = layer(h, lp)
+    h = rmsnorm(h, p["ln_f"])
+    nll, denom = cross_entropy_chunked(h, _head(p), batch["labels"],
+                                       mask=batch.get("loss_mask"),
+                                       num_chunks=cfg.ce_chunks)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return nll + aux, {"nll": nll, "aux": aux, "denom": denom}

@@ -39,6 +39,8 @@ def _bounds(cs):
         "ppa_fused": lambda n, s, o, r: cs.fused_bound(n, 2, s, o, r),
         "softmax_ppa": lambda n, s, o, r: cs.softmax_bound(n, n // 16, s, o,
                                                            r),
+        "softmax_ppa_bwd": lambda n, s, o, r: cs.softmax_bwd_bound(
+            n, n // 16, s, o, r),
     }
 
 
@@ -52,7 +54,8 @@ def test_datapath_ops_is_the_hand_count(cs):
     assert cs.datapath_ops(4, False) == 2 + 8 + 9 + 4
 
 
-@pytest.mark.parametrize("kernel", ["ppa_int", "ppa_fused", "softmax_ppa"])
+@pytest.mark.parametrize("kernel", ["ppa_int", "ppa_fused", "softmax_ppa",
+                                    "softmax_ppa_bwd"])
 @pytest.mark.parametrize("n", [32_768, 1_048_576, 4_194_304])
 @pytest.mark.parametrize("order", [1, 2])
 def test_bound_does_not_move_with_the_segment_count(cs, kernel, n, order):
@@ -117,3 +120,25 @@ def test_softmax_bound_by_hand_for_exp2_frac_16(cs):
         pytest.approx(8_454_368 / 3.35e9), "bytes")
     assert cs.softmax_bound(32_768, 2_048, 14, 2, False) == (
         pytest.approx(264_416 / 3.35e9), "bytes")
+
+
+def test_softmax_bwd_bound_by_hand_for_exp2_frac_16(cs):
+    """x and g read, dx written (12 B a score), the unexpanded mask and the
+    table; the forward's operations plus 10 float32 a score: bytes bound
+    it at the training shape and at decode."""
+    table = 14 * 4 * 4
+    for shape in ((4, 8, 2, 512, 512), (4, 8, 2, 1, 512)):
+        b, hk, g, t, s = shape
+        n = b * hk * g * t * s
+        mask = b * t * s
+        t_bytes = (12 * n + mask + table) / 3.35e12 * 1e3
+        t_ops = max((13 + 3) * n / 16.75e12, 25 * n / 33.5e12,
+                    (16 + 25) * n / 33.5e12) * 1e3
+        assert t_bytes > t_ops
+        got = cs.softmax_bwd_bound(n, mask, 14, 2, False)
+        assert got == (pytest.approx(t_bytes, rel=1e-12), "bytes")
+    # the PERF.md figures, training and decode
+    assert cs.softmax_bwd_bound(16_777_216, 1_048_576, 14, 2, False) == (
+        pytest.approx(202_375_392 / 3.35e9), "bytes")
+    assert cs.softmax_bwd_bound(32_768, 2_048, 14, 2, False) == (
+        pytest.approx(395_488 / 3.35e9), "bytes")

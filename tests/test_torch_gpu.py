@@ -1,5 +1,6 @@
 """Each CUDA kernel of the PyTorch port against its plain PyTorch version,
-on the card (they skip where there is none).  No JAX here, so the file runs
+and one train step against the plain versions, on the card (they skip
+where there is none).  No JAX here, so the file runs
 on the machine with the card:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -18,9 +19,17 @@ from repro_torch.tables import BITS, NAFS, load_table  # noqa: E402
 
 TABLES = [(naf, bits) for naf in NAFS for bits in BITS]
 SOFTMAX_ATOL = 1e-6       # the reference's own kernel-vs-wrapper bound
+#: the softmax backward against its plain version, over the largest
+#: incoming gradient (chip_smoke.py's SOFTMAX_BWD_REL)
+SOFTMAX_BWD_REL = 1e-6
+#: a kernel arm's gradient gap to the plain arm, over each leaf's largest
+#: gradient (chip_smoke.py's TRAIN_PARITY_LIMIT)
+TRAIN_PARITY_LIMIT = 2.0 ** -8
 #: the served model's launch shapes (decode, largest prefill bucket)
 FUSED_SHAPES = [(4, 1, 8192), (512, 8192)]
 SOFTMAX_SHAPES = [(4, 8, 2, 1, 512), (4, 8, 2, 128, 128)]
+#: the training scores (batch 4 x seq 512) and a decode row
+TRAIN_SOFTMAX_SHAPES = [(4, 8, 2, 512, 512), (4, 8, 2, 1, 512)]
 #: both layouts of the warp-per-row path, and the block-per-row path
 ROW_LENGTHS = [1, 31, 33, 512, 1024, 2048, 4096]
 INT32_EXTREMES = [-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1]
@@ -157,10 +166,10 @@ def test_softmax_kernel_row_lengths(n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 def test_softmax_grad_on_card(masked):
-    """With a gradient, the cuda_fused softmax still runs the softmax
-    kernel: one launch, bit for bit the output without a gradient.  Its
-    backward is not ported to the card, and raises rather than fall back
-    to the plain composition."""
+    """With a gradient, the cuda_fused softmax runs the softmax kernel
+    forward (bit for bit the output without a gradient) and the softmax
+    backward kernel backward: one launch each, no plain version, and a
+    gradient within SOFTMAX_BWD_REL of the backward's plain version."""
     dev = _card()
     tc = K.pack_table(load_table("exp2_frac", 16), dev)
     rng = np.random.default_rng(31)
@@ -173,18 +182,111 @@ def test_softmax_grad_on_card(masked):
         where = torch.from_numpy(rng.random((2, 1, 1, 7, 300)) < 0.6).to(dev)
         where[0, 0, 0, 3] = False
     tx = x.clone().requires_grad_(True)
-    launches, plain = (softmax_ppa.counts["launches"],
-                       softmax_ppa.counts["plain"])
+    K.reset_counts()
     y = K.ppa_softmax(tc, tx, where=where, backend="cuda_fused")
-    assert softmax_ppa.counts["launches"] == launches + 1
-    assert softmax_ppa.counts["plain"] == plain
-    assert y.requires_grad
+    y.backward(g)
+    c = K.read_counts()
+    assert c["softmax_ppa"] == {"launches": 1, "plain": 0}
+    assert c["softmax_ppa_bwd"] == {"launches": 1, "plain": 0}
+    assert c["ref"]["plain"] == 0
     with torch.no_grad():
         kernel = K.ppa_softmax(tc, x, where=where, backend="cuda_fused")
     assert torch.equal(y.detach(), kernel)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        y.backward(g)
-    assert softmax_ppa.counts["plain"] == plain
+    want = softmax_ppa.softmax_ppa_bwd_plain(x, g, tc, where)
+    assert float((tx.grad - want).abs().max()) <= (
+        SOFTMAX_BWD_REL * float(g.abs().max()))
+    if masked:
+        assert not tx.grad[0, :, :, 3].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TRAIN_SOFTMAX_SHAPES)
+def test_softmax_bwd_kernel_at_launch_shapes(shape):
+    """The training scores and a decode row, with attention's causal mask
+    (one row all masked) and without."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(0, 4, shape).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    b, t, s = shape[0], shape[-2], shape[-1]
+    qp = np.arange(t)[:, None] + (s - t) - (s // 4 if t == 1 else 0)
+    valid = np.broadcast_to(np.arange(s)[None, :] <= qp, (b, 1, 1, t, s))
+    valid = valid.copy()
+    valid[0, 0, 0, 0] = False
+    where = torch.from_numpy(valid).to(dev)
+    lim = SOFTMAX_BWD_REL * float(g.abs().max())
+    for w in (None, where):
+        got = softmax_ppa.softmax_ppa_bwd(x, g, tc, w)
+        want = softmax_ppa.softmax_ppa_bwd_plain(x, g, tc, w)
+        assert float((got - want).abs().max()) <= lim
+    assert not got[0, :, :, 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", ROW_LENGTHS)
+def test_softmax_bwd_kernel_row_lengths(n):
+    """Rows of both paths (warp per row up to 1024 scores, block per row
+    beyond), masked and not, aligned and not, with a three-way tie for a
+    row's max; an all-masked row gives exactly 0."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    rng = np.random.default_rng(n + 1)
+    flat = rng.normal(0, 4, 16 * n + 1).astype(np.float32)
+    flat[1 + 5 * n:1 + 5 * n + 3] = flat.max() + 1.0
+    flat = torch.from_numpy(flat).to(dev)
+    gflat = torch.from_numpy(rng.normal(size=16 * n + 1).astype(np.float32)
+                             ).to(dev)
+    where = torch.from_numpy(rng.random((16, n)) < 0.7).to(dev)
+    where[3] = False
+    where[5, :3] = True
+    for x, g in ((flat[1:].view(16, n), gflat[1:].view(16, n)),
+                 (flat[:16 * n].view(16, n), gflat[:16 * n].view(16, n))):
+        lim = SOFTMAX_BWD_REL * float(g.abs().max())
+        for w in (None, where):
+            got = softmax_ppa.softmax_ppa_bwd(x, g, tc, w)
+            want = softmax_ppa.softmax_ppa_bwd_plain(x, g, tc, w)
+            assert float((got - want).abs().max()) <= lim
+        assert not got[3].any()
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_plain():
+    """One train step of the full-width 2-layer cut (float32, batch 2 x
+    seq 128): cuda_fused's loss and gradients against ref's (the plain
+    versions on the card) within the train parity limit of chip_smoke.py,
+    and make_train_step launches the three kernels and no plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params, make_acts, param_specs
+    from repro_torch.train import (OptCfg, TrainCfg, make_train_step,
+                                   train_init)
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves
+    dev = _card()
+    cfg = get_config("internlm2-1.8b").replace(act_impl="ppa",
+                                               compute_dtype="float32")
+    cfg = cfg.replace(stages=tuple(dataclasses.replace(st, n_layers=2)
+                                   for st in cfg.stages))
+    params = init_params(param_specs(cfg), 0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=128, global_batch=2).batch_at(0).items()}
+    rl, rg = loss_and_grads(cfg, make_acts("ppa", "ref", dev), params, batch)
+    acts = make_acts("ppa", "cuda_fused", dev)
+    fl, fg = loss_and_grads(cfg, acts, params, batch)
+    assert abs(float(fl) - float(rl)) <= 1e-6 * abs(float(rl))
+    for a, b in zip(leaves(fg), leaves(rg)):
+        assert float((a - b).abs().max()) <= (
+            TRAIN_PARITY_LIMIT * float(b.abs().max()))
+    tcfg = TrainCfg(opt=OptCfg(kind="sgdm"))
+    step = make_train_step(cfg, tcfg, acts)
+    K.reset_counts()
+    params, state, m = step(params, train_init(tcfg, params), batch)
+    c = K.read_counts()
+    assert all(c[k]["launches"] >= 2 for k in ("ppa_fused", "softmax_ppa"))
+    assert c["softmax_ppa_bwd"]["launches"] >= 2
+    assert not any(v.get("plain", 0) for v in c.values())
+    assert int(state["step"]) == 1 and torch.isfinite(m["loss"])
 
 
 @pytest.mark.gpu

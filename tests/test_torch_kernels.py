@@ -264,11 +264,11 @@ def test_ppa_gate_act_grad_is_exact_vjp(naf):
 @pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
 @pytest.mark.parametrize("backend", ["ref", "cuda_int", "cuda_fused"])
 def test_ppa_softmax_grad_is_reference_vjp(backend, masked):
-    """A softmax input that needs a gradient gets the reference
-    composition's straight-through backward on every backend (on the
-    kernel backends around the softmax kernel's forward): the gradient is
-    jax.vjp of the reference's softmax, and the forward is bit for bit the
-    one without a gradient."""
+    """A softmax input that needs a gradient gets the straight-through
+    backward on every backend (on the kernel backends the softmax backward
+    kernel's plain version, around the softmax kernel's forward): the
+    gradient is jax.vjp of the reference's softmax, and the forward is bit
+    for bit the one without a gradient."""
     rtc, tc = _pair("exp2_frac", 16)
     rng = np.random.default_rng(29)
     x = rng.normal(0, 3, size=(2, 3, 5, 40)).astype(np.float32)
