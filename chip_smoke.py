@@ -58,11 +58,30 @@ Phases (any failure exits non-zero and prints no result line):
             recipe): the loss descends, and a run that crashes after step
             3 and resumes from its checkpoint gives the losses of a run
             without the crash
+10. serve_moe  full-width moonshot-v1-16b-a3b (all 48 layers: 1 dense,
+            47 MoE of 64 experts, top 6, 2 shared; random bf16 weights
+            from seed 0, 52.9 GiB), act_impl="ppa", cuda_fused, the serve
+            phase's engine and traffic: every request finishes at its
+            length, the fused and softmax kernels launch at least layers x
+            engine steps times, no plain version runs; launches by shape,
+            decode ms per step, tokens/s, peak memory
+11. parity_moe  moonshot at full width, 2 layers (the dense one and one
+            MoE), float32: the parity phase's three arms and controls; the
+            routed expert ids of every layer and call equal in all arms
+12. flash   internlm2-1.8b at full width, 2 layers, bf16, one prompt of
+            16384 tokens, attn_impl="flash" with chunks of 1024: the
+            cuda_fused arm's final hidden states and logits equal the ref
+            arm's, the fused kernel launched at the chunk shape, no plain
+            version in the kernel arm
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
-1 to 4096 scores, and times it.  The last two lines are a JSON object with
-one entry per kernel, then ``{"ok": true, "device": {...}}``.
+1 to 4096 scores, and times it.  After each of serve, serve_int, train,
+serve_moe and flash, every input shape at which that run launched the
+integer, fused or softmax kernel (``read_shape_counts``) is held to the
+plain version and timed beside its bound (``path_rows``), and its row in
+the kernels line carries those launches.  The last two lines are a JSON object with one entry per kernel, then ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -91,7 +110,7 @@ INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 ISSUE_OPS_PER_S = FP32_OPS_PER_S
 
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 512, 8, 32
-PREFILL_ROWS = 4 * 128          # B * T at the largest prefill bucket
+PREFILL_ROWS = 4 * 128          # B * T of a full prefill group
 SOFTMAX_ATOL = 1e-6             # reference bound, tests/test_kernels.py
 # The softmax backward against its plain version, per case, as a fraction
 # of the largest incoming gradient: the two sum c = sum g y and sum d in
@@ -102,11 +121,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 8
 # The parity gate: the largest logit gap between the plain arm and a
 # kernel arm, as a fraction of the largest logit (phase_parity).
 PARITY_LIMIT = 2.0 ** -8
-# The shapes the served model launches the kernels at: the SwiGLU gate
-# input (B, T, 8192), bf16 into the fused kernel or quantized to int32 into
-# the integer kernel, and the attention scores (B, Hk, G, T, S) float32, at
-# decode (B = slots, T = 1, S = cache) and at the largest prefill bucket
-# (4 x 128 tokens).
+# The kernels' standing shapes, timed in every run so that runs compare:
+# the SwiGLU gate input (B, T, 8192), bf16 into the fused kernel or
+# quantized to int32 into the integer kernel, and the attention scores
+# (B, Hk, G, T, S) float32, at decode (B = slots, T = 1, S = cache), which
+# the serve phase launches, and at a full prefill group of 4 x 128 tokens,
+# which its traffic does not form (its groups hold at most 3 x 128; those
+# are ``path_rows``).
 FUSED_SHAPES = {"decode": (SERVE_SLOTS, 1, 8192),
                 "prefill": (PREFILL_ROWS, 8192)}
 INT_SHAPES = FUSED_SHAPES
@@ -116,6 +137,13 @@ SOFTMAX_SHAPES = {"decode": (SERVE_SLOTS, 8, 2, 1, SERVE_CACHE_LEN),
 # at a decode-like row of the cache.
 SOFTMAX_BWD_SHAPES = {"train": (TRAIN_BATCH, 8, 2, TRAIN_SEQ, TRAIN_SEQ),
                       "decode": SOFTMAX_SHAPES["decode"]}
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# Flash attention's exponentials, float32 into the fused kernel without
+# the gate on the exp_neg table: a chunk's scores (B, Hk, G, T, chunk) and
+# the running-max rescale (B, Hk, G, T), internlm2 at one 16k prompt.
+FLASH_T, FLASH_CHUNK = 16384, 1024
+FLASH_FUSED_SHAPES = {"flash_chunk": (1, 8, 2, FLASH_T, FLASH_CHUNK),
+                      "flash_rescale": (1, 8, 2, FLASH_T)}
 # Row lengths the softmax is held to its plain version at: both layouts of
 # the warp-per-row path and the block-per-row path beyond 2048.
 SOFTMAX_ROW_LENGTHS = (1, 31, 33, 512, 1024, 2048, 4096)
@@ -232,11 +260,14 @@ def int_bound(n: int, num_segments: int, order: int, round_mults: bool):
 
 
 def fused_bound(n: int, itemsize: int, num_segments: int, order: int,
-                round_mults: bool):
-    """ppa_fused on n elements of ``itemsize`` bytes, read and written."""
+                round_mults: bool, gate: bool = True):
+    """ppa_fused on n elements of ``itemsize`` bytes, read and written.
+    Without the gate there is no gate product, and a float32 input needs
+    no widening or narrowing: 12, 11, 10 or 9 float32 operations."""
+    fp_ops = FUSED_FP_OPS - (not gate) - 2 * (itemsize == 4)
     return bound(2 * itemsize * n + table_bytes(num_segments, order),
                  n * (datapath_ops(order, round_mults) + FUSED_INT_OPS),
-                 n * FUSED_FP_OPS)
+                 n * fp_ops)
 
 
 def softmax_bound(n: int, mask_bytes: int, num_segments: int, order: int,
@@ -441,39 +472,100 @@ def _check_softmax(torch, gen, dev, softmax_ppa, e2):
     return err
 
 
-def kernel_times(torch, dev, gen, ppa, fused, softmax_ppa, sig, e2,
-                 plain: bool = True):
-    """{kernel: {"decode" | "prefill": row}}: the integer kernel (int32 in
-    [lo, hi), table ``sig``), the fused kernel (bf16 gated, table ``sig``)
-    and the softmax kernel (attention mask, table ``e2``) of the wrapper
-    modules given, at INT_SHAPES, FUSED_SHAPES and SOFTMAX_SHAPES.  Each is
-    first held to its plain version at that shape, then timed
-    (``time_launch``) beside its bound; with ``plain``, also the plain
-    version, and a PyTorch call that computes the same function (the
-    integer kernel's: a gather of the tabulated outputs) or another one
-    (context)."""
-    from repro_torch.kernels.ref import ppa_eval_ref
+def _table_args(tc):
+    return tc.num_segments, tc.plan.order, tc.plan.round_mults
 
-    def table_args(tc):
-        return tc.num_segments, tc.plan.order, tc.plan.round_mults
+
+def int_row(torch, gen, dev, ppa, sig, shape, plain: bool = True):
+    """The integer kernel on int32 inputs in [lo, hi) of table ``sig`` at
+    ``shape``: held to its plain version bit for bit, then timed
+    (``time_launch``) beside its bound; with ``plain``, also the plain
+    version and the PyTorch call that computes the same function, a gather
+    of the tabulated outputs.  Returns (row, input)."""
+    from repro_torch.kernels.ref import ppa_eval_ref
 
     def eval_plain(xq):
         return ppa_eval_ref(xq, sig.starts, sig.coefs, sig.plan)
 
+    xq = torch.randint(sig.lo, sig.hi, shape, generator=gen, device=dev,
+                       dtype=torch.int32)
+    if not torch.equal(ppa.ppa_eval_int(sig, xq), eval_plain(xq)):
+        raise AssertionError(f"ppa_int != plain at {shape}")
+    ms, host = time_launch(lambda: ppa.ppa_eval_int(sig, xq))
+    b_ms, b_by = int_bound(xq.numel(), *_table_args(sig))
+    row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
+               bound_by=b_by)
+    if plain:
+        row["plain_ms"] = time_ms(lambda: eval_plain(xq), iters=10)
+        row["library_ms"], _ = time_launch(
+            lambda: sig.val_lut[(xq - sig.lo).long()])
+    return row, xq
+
+
+def fused_row(torch, fused, tc, x, gate: bool, plain: bool = True):
+    """The fused kernel on ``x`` through table ``tc``: held to its plain
+    version bit for bit, then timed beside its bound; with ``plain``, also
+    the plain version and, gated, torch's silu (context: not the same
+    function)."""
+    got = fused.ppa_fused_apply(tc, x, gate)
+    if not torch.equal(got, fused.ppa_fused_plain(tc, x, gate)):
+        raise AssertionError(f"ppa_fused != plain at {tuple(x.shape)} "
+                             f"{x.dtype} {tc.naf} gate={gate}")
+    del got
+    iters = 10 if x.numel() > 1 << 26 else 50
+    ms, host = time_launch(lambda: fused.ppa_fused_apply(tc, x, gate),
+                           iters=iters)
+    b_ms, b_by = fused_bound(x.numel(), x.element_size(), *_table_args(tc),
+                             gate=gate)
+    row = dict(shape=list(x.shape), ms=ms, host_us=host, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, table=f"{tc.naf}-16",
+               dtype=str(x.dtype).replace("torch.", ""), gate=gate)
+    if plain:
+        row["plain_ms"] = time_ms(
+            lambda: fused.ppa_fused_plain(tc, x, gate),
+            iters=3 if iters == 10 else 10)
+        if gate:
+            row["context_silu_ms"], _ = time_launch(
+                lambda: torch.nn.functional.silu(x), iters=iters)
+    return row
+
+
+def softmax_row(torch, gen, dev, softmax_ppa, e2, shape, plain: bool = True):
+    """The softmax kernel on scores of ``shape`` under the attention mask:
+    held to its plain version within SOFTMAX_ATOL, then timed beside its
+    bound; with ``plain``, also the plain version and torch's masked
+    softmax (context: not the same function)."""
+    x = torch.randn(shape, generator=gen, device=dev) * 4.0
+    where = attention_mask(torch, dev, shape)
+    err = float((softmax_ppa.softmax_ppa(x, e2, where)
+                 - softmax_ppa.softmax_ppa_plain(x, e2, where)
+                 ).abs().max())
+    if not err <= SOFTMAX_ATOL:
+        raise AssertionError(f"softmax_ppa vs plain at {shape}: {err}")
+    ms, host = time_launch(lambda: softmax_ppa.softmax_ppa(x, e2, where))
+    b_ms, b_by = softmax_bound(x.numel(), where.numel(), *_table_args(e2))
+    row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, masked=True, max_abs_err=err)
+    if plain:
+        mask = where.expand(x.shape)
+        row["plain_ms"] = time_ms(
+            lambda: softmax_ppa.softmax_ppa_plain(x, e2, where), iters=10)
+        row["context_masked_softmax_ms"], _ = time_launch(
+            lambda: torch.softmax(x.masked_fill(~mask, float("-inf")),
+                                  dim=-1))
+    return row
+
+
+def kernel_times(torch, dev, gen, ppa, fused, softmax_ppa, sig, e2,
+                 plain: bool = True):
+    """{kernel: {"decode" | "prefill": row}}: the integer kernel (table
+    ``sig``), the fused kernel (bf16 gated, table ``sig``) and the softmax
+    kernel (attention mask, table ``e2``) of the wrapper modules given, at
+    INT_SHAPES, FUSED_SHAPES and SOFTMAX_SHAPES (``int_row``,
+    ``fused_row``, ``softmax_row``)."""
     out = {"ppa_int": {}, "ppa_fused": {}, "softmax_ppa": {}}
     for label, shape in INT_SHAPES.items():
-        xq = torch.randint(sig.lo, sig.hi, shape, generator=gen, device=dev,
-                           dtype=torch.int32)
-        if not torch.equal(ppa.ppa_eval_int(sig, xq), eval_plain(xq)):
-            raise AssertionError(f"ppa_int != plain at {shape}")
-        ms, host = time_launch(lambda: ppa.ppa_eval_int(sig, xq))
-        b_ms, b_by = int_bound(xq.numel(), *table_args(sig))
-        row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
-                   bound_by=b_by)
-        if plain:
-            row["plain_ms"] = time_ms(lambda: eval_plain(xq), iters=10)
-            row["library_ms"], _ = time_launch(
-                lambda: sig.val_lut[(xq - sig.lo).long()])
+        row, xq = int_row(torch, gen, dev, ppa, sig, shape, plain)
         if label == "prefill":
             # the launches cycle over 4 copies of the input, 67 MB at this
             # shape, more than the 50 MB L2: each finds its input in
@@ -485,40 +577,64 @@ def kernel_times(torch, dev, gen, ppa, fused, softmax_ppa, sig, e2,
     for label, shape in FUSED_SHAPES.items():
         xb = (torch.randn(shape, generator=gen, device=dev) * 3.0
               ).to(torch.bfloat16)
-        if not torch.equal(fused.ppa_fused_apply(sig, xb, True),
-                           fused.ppa_fused_plain(sig, xb, True)):
-            raise AssertionError(f"ppa_fused != plain at {shape}")
-        ms, host = time_launch(lambda: fused.ppa_fused_apply(sig, xb, True))
-        b_ms, b_by = fused_bound(xb.numel(), 2, *table_args(sig))
-        row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None)
-        if plain:
-            row["plain_ms"] = time_ms(
-                lambda: fused.ppa_fused_plain(sig, xb, True), iters=10)
-            row["context_silu_ms"], _ = time_launch(
-                lambda: torch.nn.functional.silu(xb))
-        out["ppa_fused"][label] = row
+        out["ppa_fused"][label] = fused_row(torch, fused, sig, xb, True,
+                                            plain)
     for label, shape in SOFTMAX_SHAPES.items():
-        x = torch.randn(shape, generator=gen, device=dev) * 4.0
-        where = attention_mask(torch, dev, shape)
-        err = float((softmax_ppa.softmax_ppa(x, e2, where)
-                     - softmax_ppa.softmax_ppa_plain(x, e2, where)
-                     ).abs().max())
-        if not err <= SOFTMAX_ATOL:
-            raise AssertionError(f"softmax_ppa vs plain at {shape}: {err}")
-        ms, host = time_launch(lambda: softmax_ppa.softmax_ppa(x, e2, where))
-        b_ms, b_by = softmax_bound(x.numel(), where.numel(), *table_args(e2))
-        row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None, masked=True,
-                   max_abs_err=err)
-        if plain:
-            mask = where.expand(x.shape)
-            row["plain_ms"] = time_ms(
-                lambda: softmax_ppa.softmax_ppa_plain(x, e2, where), iters=10)
-            row["context_masked_softmax_ms"], _ = time_launch(
-                lambda: torch.softmax(x.masked_fill(~mask, float("-inf")),
-                                      dim=-1))
-        out["softmax_ppa"][label] = row
+        out["softmax_ppa"][label] = softmax_row(torch, gen, dev, softmax_ppa,
+                                                e2, shape, plain)
+    return out
+
+
+def flash_input(torch, gen, dev, shape):
+    """What flash attention hands the fused kernel, ``m - s`` >= 0: the
+    scores' distance below the running max, +inf where the chunk's causal
+    mask hides a key, and at the rescale shape NaN in one row (the first
+    chunk's -inf - -inf, which the caller masks)."""
+    x = torch.randn(shape, generator=gen, device=dev).abs() * 4.0
+    if len(shape) == 5:
+        t, c = shape[-2:]
+        hidden = (torch.arange(c, device=dev)[None, :]
+                  > torch.arange(t, device=dev)[:, None])
+        x = x.masked_fill(hidden, float("inf"))
+    else:
+        x[..., 0] = float("nan")
+    return x
+
+
+def path_rows(torch, dev, path, by_shape, flash_ranks=()):
+    """{kernel: {label: row}} for every input shape at which the run of
+    ``path`` launched the integer, fused and softmax kernels (its
+    ``read_shape_counts``), each with its launches there.  A row is
+    ``int_row``, ``fused_row`` or ``softmax_row``: held to the plain
+    version, then timed beside its bound.  The fused kernel's input is the
+    served model's bf16 SwiGLU gate (gated, sigmoid_wide-16); at a rank in
+    ``flash_ranks`` it is flash attention's float32 ``m - s``
+    (``flash_input``, exp_neg-16, no gate)."""
+    from repro_torch.kernels import fused, ppa, softmax_ppa
+    from repro_torch.kernels.ops import pack_table
+    from repro_torch.tables import load_table
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    sig, en, e2 = (pack_table(load_table(n, 16), dev)
+                   for n in ("sigmoid_wide", "exp_neg", "exp2_frac"))
+    out = {"ppa_int": {}, "ppa_fused": {}, "softmax_ppa": {}}
+    for shape, n in sorted(by_shape["ppa_int"].items()):
+        row, _ = int_row(torch, gen, dev, ppa, sig, shape)
+        out["ppa_int"][f"{path} {shape}"] = dict(row, launches=n)
+    for shape, n in sorted(by_shape["ppa_fused"].items()):
+        if len(shape) in flash_ranks:
+            row = fused_row(torch, fused, en,
+                            flash_input(torch, gen, dev, shape), False)
+        else:
+            x = (torch.randn(shape, generator=gen, device=dev) * 3.0
+                 ).to(torch.bfloat16)
+            row = fused_row(torch, fused, sig, x, True)
+        out["ppa_fused"][f"{path} {shape}"] = dict(row, launches=n)
+    for shape, n in sorted(by_shape["softmax_ppa"].items()):
+        row = softmax_row(torch, gen, dev, softmax_ppa, e2, shape)
+        out["softmax_ppa"][f"{path} {shape}"] = dict(row, launches=n)
+    _free(torch)
     return out
 
 
@@ -632,45 +748,55 @@ def phase_kernels(torch, dev):
     sm_err = _check_softmax(torch, gen, dev, softmax_ppa, e2)
     bwd_err = _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2)
 
-    # ---- timings at main-path shapes
+    # ---- timings at the standing shapes; a kernel's own numbers in the
+    # kernels line are those at decode, the shape its main path launches
+    # most (the shapes a path launched are timed after it: path_rows)
     sig = tcs[("sigmoid_wide", 16)]
     times = kernel_times(torch, dev, gen, ppa, fused, softmax_ppa, sig, e2)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    int_row = dict(
+    int_k = dict(
         name="ppa_int", route="cuda",
         source="src/repro_torch/kernels/csrc/ppa_int.cu",
         replaces="src/repro/kernels/ppa.py:77", max_abs_err=0.0,
-        **{k: times["ppa_int"]["prefill"][k] for k in keys},
+        **{k: times["ppa_int"]["decode"][k] for k in keys},
         dtype="int32", table="sigmoid_wide-16", shapes=times["ppa_int"])
-    fused_row = dict(
+    fused_k = dict(
         name="ppa_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/ppa_fused.cu",
         replaces="src/repro/kernels/fused.py:40", max_abs_err=0.0,
-        **{k: times["ppa_fused"]["prefill"][k] for k in keys},
+        **{k: times["ppa_fused"]["decode"][k] for k in keys},
         dtype="bfloat16", gate=True, table="sigmoid_wide-16",
         shapes=times["ppa_fused"])
-    sm_row = dict(
+    sm_k = dict(
         name="softmax_ppa", route="cuda",
         source="src/repro_torch/kernels/csrc/softmax_ppa.cu",
         replaces="src/repro/kernels/softmax_ppa.py:44", max_abs_err=sm_err,
-        **{k: times["softmax_ppa"]["prefill"][k] for k in keys},
+        **{k: times["softmax_ppa"]["decode"][k] for k in keys},
         masked=True, table="exp2_frac-16", shapes=times["softmax_ppa"])
 
     bwd_times = softmax_bwd_times(torch, dev, gen, softmax_ppa, e2)
-    bwd_row = dict(
+    bwd_k = dict(
         name="softmax_ppa_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/softmax_ppa.cu",
         replaces="src/repro/kernels/ops.py:391", max_abs_err=bwd_err,
         **{k: bwd_times["train"][k] for k in keys}, masked=True,
         table="exp2_frac-16", shapes=bwd_times)
 
-    rows = [int_row, fused_row, sm_row, bwd_row]
-    for r in rows:
-        for label, t in r["shapes"].items():
+    rows = [int_k, fused_k, sm_k, bwd_k]
+    log_rows("kernels", {r["name"]: r["shapes"] for r in rows})
+    return rows
+
+
+def log_rows(tag, shapes):
+    """One line for each row of {kernel: {label: row}}."""
+    for name, by_label in shapes.items():
+        for label, t in by_label.items():
             ctx = t.get("context_silu_ms", t.get(
                 "context_masked_softmax_ms",
                 t.get("context_softmax_backward_ms")))
-            log(f"[kernels] {r['name']} {label} {t['shape']}: "
+            log(f"[{tag}] {name} {label} {t['shape']}"
+                + ("" if "table" not in t else
+                   f" {t['dtype']} {t['table']} gate={t['gate']}") + ": "
                 f"{t['ms']:.5f} ms on the device (plain {t['plain_ms']:.5f}"
                 f" ms, bound {t['bound_ms']:.7f} ms by {t['bound_by']}, "
                 f"{100 * t['bound_ms'] / t['ms']:.1f}% of it; library "
@@ -680,8 +806,9 @@ def phase_kernels(torch, dev):
                    f"; context, not the same function: {ctx:.5f} ms")
                 + ("" if "cold_ms" not in t else
                    f"; inputs not in L2: {t['cold_ms']:.5f} ms")
-                + f"), host {t['host_us']:.1f} us per call")
-    return rows
+                + f"), host {t['host_us']:.1f} us per call"
+                + ("" if "launches" not in t else
+                   f"; {t['launches']} launches on the path"))
 
 
 def _cut(cfg, layers: int):
@@ -763,21 +890,91 @@ def phase_serve(torch, dev, card):
         f"{mem / 2**30:.2f} GiB; prefill shapes {sorted(eng.prefill_shapes)}"
         f"; card {card}")
     by_shape = read_shape_counts()
-    out = {}
-    for k, decode_shape in (("ppa_fused", FUSED_SHAPES["decode"]),
-                            ("softmax_ppa", SOFTMAX_SHAPES["decode"])):
-        at_decode = by_shape[k].get(decode_shape, 0)
-        out[k] = {"total": counts[k]["launches"], "decode": at_decode,
-                  "prefill": counts[k]["launches"] - at_decode}
+    # the launches in all and at each standing shape (kernel_times)
+    out = {k: {"total": counts[k]["launches"],
+               **{label: by_shape[k].get(shape, 0)
+                  for label, shape in shapes.items()}}
+           for k, shapes in (("ppa_fused", FUSED_SHAPES),
+                             ("softmax_ppa", SOFTMAX_SHAPES))}
     log(f"[serve] launches fused={counts['ppa_fused']['launches']} softmax="
         f"{counts['softmax_ppa']['launches']} (layers x steps = {need}); "
         f"by shape {by_shape}; plain calls {plain}")
-    log(f"[serve] launches at the decode shapes fused "
-        f"{out['ppa_fused']['decode']} {FUSED_SHAPES['decode']} and softmax "
-        f"{out['softmax_ppa']['decode']} {SOFTMAX_SHAPES['decode']}; in "
-        f"prefill groups fused {out['ppa_fused']['prefill']} and softmax "
-        f"{out['softmax_ppa']['prefill']}")
-    return out
+    rows = path_rows(torch, dev, "serve", by_shape)
+    log_rows("serve", rows)
+    return out, rows
+
+
+def phase_serve_moe(torch, dev, card):
+    """Full-width moonshot-v1-16b-a3b through the serve phase's engine and
+    traffic; returns the launches of the fused and softmax kernels and
+    ``path_rows`` of this run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, read_shape_counts
+
+    _free(torch)
+    cfg = get_config(MOE_ARCH).replace(act_impl="ppa",
+                                       compute_dtype="bfloat16",
+                                       act_backend="cuda_fused")
+    lens = [32, 128, 64, 96, 48, 128, 80, 112][:SERVE_REQUESTS]
+    eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
+                                    SERVE_NEW, lens)
+    counts, by_shape = read_counts(), read_shape_counts()
+    mem = torch.cuda.max_memory_allocated(dev)
+    n_steps = len(steps)
+    need = cfg.n_layers * n_steps
+    for k in ("ppa_fused", "softmax_ppa"):
+        if counts[k]["launches"] < need:
+            raise AssertionError(f"{k} launched {counts[k]['launches']} "
+                                 f"times < layers x steps = {need}")
+    plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the MoE path: {plain}")
+    decode = sorted(t for t, adm in steps if adm == 0)
+    dec_ms = decode[len(decode) // 2] * 1e3
+    adm_ms = [t * 1e3 - dec_ms for t, adm in steps if adm > 0]
+    tokens = sum(len(r.output) for r in reqs)
+    log(f"[serve_moe] {MOE_ARCH} {cfg.n_layers}L ({cfg.stages[0].n_layers} "
+        f"dense + {cfg.stages[1].n_layers} MoE, {cfg.moe_experts} experts "
+        f"top {cfg.moe_topk}, {cfg.moe_shared} shared) d_model "
+        f"{cfg.d_model} bf16 act_impl=ppa act_backend={eng.cfg.act_backend}"
+        f": {len(reqs)} requests, {tokens} tokens in {wall:.3f}s = "
+        f"{tokens / wall:.1f} tok/s over {n_steps} engine steps; decode "
+        f"{dec_ms:.2f} ms/step (median; each "
+        f"{[round(t * 1e3, 2) for t in decode]}); prefill "
+        f"{sum(adm_ms):.2f} ms in {len(adm_ms)} admission steps (step time "
+        f"minus median decode); max_memory_allocated {mem / 2**30:.2f} GiB;"
+        f" prefill shapes {sorted(eng.prefill_shapes)}; card {card}")
+    del eng
+    _free(torch)
+    # each decode step launches the fused kernel at the expert buffer of 4
+    # tokens (E, C, f), the shared experts' and the dense layer's gates,
+    # and the softmax at every layer's scores
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _moe_cfg
+    mcfg = _moe_cfg(cfg)
+    dense, moe_layers = (st.n_layers for st in cfg.stages)
+    decode_shapes = {
+        "ppa_fused": {
+            (mcfg.n_experts, moe._capacity(SERVE_SLOTS, mcfg), mcfg.d_ff):
+                moe_layers,
+            (SERVE_SLOTS, 1, cfg.moe_shared * mcfg.d_ff): moe_layers,
+            (SERVE_SLOTS, 1, cfg.d_ff): dense},
+        "softmax_ppa": {(SERVE_SLOTS, cfg.n_kv, cfg.n_q // cfg.n_kv, 1,
+                         SERVE_CACHE_LEN): cfg.n_layers}}
+    for k, shapes in decode_shapes.items():
+        for shape, n in shapes.items():
+            if by_shape[k].get(shape, 0) < n * len(decode):
+                raise AssertionError(
+                    f"{k} at the decode shape {shape}: "
+                    f"{by_shape[k].get(shape, 0)} launches < {n} x "
+                    f"{len(decode)} decode steps")
+    log(f"[serve_moe] launches fused={counts['ppa_fused']['launches']} "
+        f"softmax={counts['softmax_ppa']['launches']} (layers x steps = "
+        f"{need}); by shape {by_shape}; plain calls {plain}")
+    rows = path_rows(torch, dev, "serve_moe", by_shape)
+    log_rows("serve_moe", rows)
+    return {k: {"total": counts[k]["launches"]}
+            for k in ("ppa_fused", "softmax_ppa")}, rows
 
 
 def phase_serve_int(torch, dev):
@@ -798,7 +995,8 @@ def phase_serve_int(torch, dev):
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the int path: {plain}")
     total = counts["ppa_int"]["launches"]
-    at_decode = read_shape_counts()["ppa_int"].get(INT_SHAPES["decode"], 0)
+    by_shape = read_shape_counts()
+    at_decode = by_shape["ppa_int"].get(INT_SHAPES["decode"], 0)
     decode = sorted(t for t, adm in steps if adm == 0)
     log(f"[serve_int] internlm2-1.8b 2L act_backend=cuda_int: {len(reqs)} "
         f"requests in {len(steps)} steps, {wall:.3f}s; decode "
@@ -806,8 +1004,12 @@ def phase_serve_int(torch, dev):
         f"int={total} (layers x steps = {need}; {at_decode} at the decode "
         f"shape {INT_SHAPES['decode']}) softmax="
         f"{counts['softmax_ppa']['launches']}; plain calls {plain}")
-    return {"total": total, "decode": at_decode,
-            "prefill": total - at_decode}
+    rows = path_rows(torch, dev, "serve_int", by_shape)
+    log_rows("serve_int", rows)
+    return {"ppa_int": {"total": total, "decode": at_decode, "prefill":
+                        by_shape["ppa_int"].get(INT_SHAPES["prefill"], 0)},
+            "softmax_ppa": {"total": counts["softmax_ppa"]["launches"]}
+            }, rows
 
 
 PARITY_ARMS = ("ref", "cuda_int", "cuda_fused")
@@ -822,14 +1024,15 @@ PARITY_CONTROLS = {"+-1e-6": 1e-6, "+-1e-5": 1e-5, "+-1e-4": 1e-4,
 
 def _parity_run(torch, params, cfg, prompt, acts, silu_tc):
     """Prefill + 8 greedy decode steps; returns (tokens, logits, the silu
-    gate's quantized inputs and outputs per call).  A quantized input is
-    the table grid point the float path evaluates, floor(|x| 2^w_in + 0.5),
-    with every input at or beyond the interval's end counted as hi."""
+    gate's quantized inputs and outputs per call, the routed expert ids of
+    every MoE layer and call).  A quantized input is the table grid point
+    the float path evaluates, floor(|x| 2^w_in + 0.5), with every input at
+    or beyond the interval's end counted as hi."""
     import dataclasses as dc
-    from repro_torch.models import decode_step, prefill
+    from repro_torch.models import decode_step, moe, prefill
 
-    qs, outs = [], []
-    silu = acts.silu
+    qs, outs, routes = [], [], []
+    silu, route = acts.silu, moe._route
 
     def recorded(x):
         q = torch.floor(x.float().abs() * float(1 << silu_tc.w_in) + 0.5)
@@ -837,21 +1040,31 @@ def _parity_run(torch, params, cfg, prompt, acts, silu_tc):
         outs.append(silu(x))
         return outs[-1]
 
+    def recorded_route(x2, router, mcfg):
+        out = route(x2, router, mcfg)
+        routes.append(out[0].clone())
+        return out
+
     acts = dc.replace(acts, silu=recorded)
     dev = prompt.device
-    logits, cache = prefill(params, cfg, {"tokens": prompt}, 128, acts)
-    toks, all_logits = [], [logits]
-    pos = torch.full((4,), 64, dtype=torch.int32, device=dev)
-    tok = torch.argmax(logits, -1)
-    for _ in range(8):
-        toks.append(tok)
-        logits, cache = decode_step(params, cfg, cache,
-                                    tok[:, None].to(torch.int32), pos, acts)
-        all_logits.append(logits)
+    moe._route = recorded_route
+    try:
+        logits, cache = prefill(params, cfg, {"tokens": prompt}, 128, acts)
+        toks, all_logits = [], [logits]
+        pos = torch.full((4,), 64, dtype=torch.int32, device=dev)
         tok = torch.argmax(logits, -1)
-        pos = pos + 1
+        for _ in range(8):
+            toks.append(tok)
+            logits, cache = decode_step(params, cfg, cache,
+                                        tok[:, None].to(torch.int32), pos,
+                                        acts)
+            all_logits.append(logits)
+            tok = torch.argmax(logits, -1)
+            pos = pos + 1
+    finally:
+        moe._route = route
     toks.append(tok)
-    return torch.stack(toks), torch.stack(all_logits), qs, outs
+    return torch.stack(toks), torch.stack(all_logits), qs, outs, routes
 
 
 def _moved_softmax(torch, dev, softmax, d, seed: int = 2):
@@ -869,7 +1082,10 @@ def _moved_softmax(torch, dev, softmax, d, seed: int = 2):
     return fn
 
 
-def phase_parity(torch, dev):
+def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
+                 tag="parity"):
+    """The three arms and the controls on ``arch`` at full width, each
+    stage cut to ``per_stage`` layers, float32."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import pack_table
@@ -877,7 +1093,8 @@ def phase_parity(torch, dev):
                                     prepare_params)
     from repro_torch.tables import load_table
 
-    cfg = _cut(get_config("internlm2-1.8b"), 2).replace(
+    _free(torch)
+    cfg = _cut(get_config(arch), per_stage).replace(
         act_impl="ppa", compute_dtype="float32")
     params = prepare_params(
         init_params(param_specs(cfg), 0, device=dev), cfg)
@@ -902,7 +1119,7 @@ def phase_parity(torch, dev):
     report = {}
     for a, b in (("ref", "cuda_int"), ("cuda_int", "cuda_fused"),
                  ("ref", "cuda_fused")):
-        (_, la, qa, oa), (_, lb, qb, ob) = runs[a], runs[b]
+        (_, la, qa, oa, _), (_, lb, qb, ob, _) = runs[a], runs[b]
         flips = [qx != qy for qx, qy in zip(qa, qb)]
         n_flips = sum(int(f.sum()) for f in flips)
         d_out = [(ox - oy).abs() for ox, oy in zip(oa, ob)]
@@ -916,7 +1133,7 @@ def phase_parity(torch, dev):
             flips_per_call=per_call, silu_gap_at_flips=at_flips,
             silu_gap_elsewhere=elsewhere,
             tokens_equal=bool(torch.equal(toks[a], toks[b])))
-        log(f"[parity] {a} vs {b}: max |logit gap| "
+        log(f"[{tag}] {a} vs {b}: max |logit gap| "
             f"{report[f'{a}|{b}']['gap']:.3e} (logits up to {scale:.3e}); "
             f"{n_flips} quantized silu inputs differ (per call, prefill "
             f"then decode, layer by layer: {per_call}); silu output gap "
@@ -925,6 +1142,17 @@ def phase_parity(torch, dev):
         if not r["tokens_equal"]:
             raise AssertionError(f"greedy tokens differ between {pair} "
                                  f"(max logit gap {r['gap']})")
+    routes = {n: r[4] for n, r in runs.items()}
+    if cfg.moe_experts:
+        for name in ("cuda_int", "cuda_fused"):
+            if len(routes[name]) != len(routes["ref"]) or not all(
+                    torch.equal(a, b)
+                    for a, b in zip(routes[name], routes["ref"])):
+                raise AssertionError(f"routed expert ids differ between ref"
+                                     f" and {name}")
+        log(f"[{tag}] routed expert ids equal in all three arms: "
+            f"{len(routes['ref'])} calls of the router (prefill then decode"
+            f"), {sum(r.numel() for r in routes['ref'])} assignments")
     # The bound, from the attribution.  cuda_int and cuda_fused share the
     # softmax kernel and differ only in the fused kernel, which is exact:
     # their logits must be equal.  Against ref, both differ only in the
@@ -947,7 +1175,7 @@ def phase_parity(torch, dev):
     gaps = {name: float((runs["ref"][1] - lc).abs().max())
             for name, lc in controls.items()}
     for name, gap in gaps.items():
-        log(f"[parity] control ref with its softmax {name}: max |logit "
+        log(f"[{tag}] control ref with its softmax {name}: max |logit "
             f"gap| {gap:.3e} against ref")
     for pair in ("ref|cuda_int", "ref|cuda_fused"):
         if not report[pair]["gap"] <= limit:
@@ -959,7 +1187,9 @@ def phase_parity(torch, dev):
                 f"control {name}: logit gap {gaps[name]} <= the limit "
                 f"{limit}: the gate passes a softmax beyond {SOFTMAX_ATOL} "
                 "of the plain one")
-    log(f"[parity] internlm2-1.8b 2L float32: prefill + 8 greedy decode "
+    del runs, controls, params
+    _free(torch)
+    log(f"[{tag}] {arch} {cfg.n_layers}L float32: prefill + 8 greedy decode "
         f"steps, equal tokens in all three arms; cuda_int vs cuda_fused "
         f"logits equal (the fused kernel is exact); ref vs either "
         f"{report['ref|cuda_int']['gap']:.3e} <= {PARITY_LIMIT} x "
@@ -1075,7 +1305,7 @@ def phase_train(torch, dev, card):
     """Full-width training through the launcher's ``run_training``, its
     step 0 held to the plain versions at full depth
     (``_check_train_depth``); returns the launches of each kernel, in all
-    and at the training shapes."""
+    and at the training shapes, and ``path_rows`` of this run."""
     import math
     from repro_torch.configs import get_config
     from repro_torch.kernels import (read_counts, read_shape_counts,
@@ -1145,7 +1375,9 @@ def phase_train(torch, dev, card):
             raise AssertionError(f"{k} launched {counts[k]['launches']} "
                                  f"times in {steps} steps < {n}")
     _free(torch)
-    return result
+    rows = path_rows(torch, dev, "train", by_shape)
+    log_rows("train", rows)
+    return result, rows
 
 
 # The train parity gates: the largest gradient gap between the plain arm
@@ -1294,6 +1526,80 @@ def phase_train_resume(torch, dev):
         "to the uninterrupted run's bit for bit")
 
 
+def phase_flash(torch, dev):
+    """internlm2-1.8b at full width, 2 layers, bf16, one prompt of FLASH_T
+    tokens through prefill with flash attention (chunks of FLASH_CHUNK),
+    in the plain arm (``ref``) and the kernel arm (``cuda_fused``) on the
+    same weights.  The fused kernel is exact and flash attention launches
+    no softmax kernel, so the arms' final hidden states and logits must be
+    equal.  Returns the kernel arm's launches of the fused kernel and its
+    ``path_rows``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (read_counts, read_shape_counts,
+                                     reset_counts)
+    from repro_torch.models import (forward_hidden, init_params, make_acts,
+                                    param_specs, prepare_params)
+    from repro_torch.models.layers import lm_head_logits
+
+    _free(torch)
+    cfg = _cut(get_config("internlm2-1.8b"), 2).replace(
+        act_impl="ppa", compute_dtype="bfloat16", attn_impl="flash",
+        flash_chunk=FLASH_CHUNK)
+    params = prepare_params(init_params(param_specs(cfg), 0,
+                                        dtype=torch.bfloat16, device=dev),
+                            cfg)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, FLASH_T)), dtype=torch.int32, device=dev)
+    out = {}
+    with torch.inference_mode():
+        for name in ("ref", "cuda_fused"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            h = forward_hidden(params, cfg, prompt,
+                               make_acts("ppa", name, dev))
+            logits = lm_head_logits(h[:, -1], params["lm_head"])
+            torch.cuda.synchronize()
+            out[name] = (h, logits, time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated(dev),
+                         read_counts(), read_shape_counts())
+    (h_ref, l_ref, t_ref, m_ref, _, _), (h, lg, t_k, m_k, counts,
+                                         by_shape) = out.values()
+    gap_h = float((h.float() - h_ref.float()).abs().max())
+    gap_l = float((lg - l_ref).abs().max())
+    plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+    chunk = by_shape["ppa_fused"].get(FLASH_FUSED_SHAPES["flash_chunk"], 0)
+    rescale = by_shape["ppa_fused"].get(
+        FLASH_FUSED_SHAPES["flash_rescale"], 0)
+    need = cfg.n_layers * FLASH_T // FLASH_CHUNK
+    log(f"[flash] internlm2-1.8b {cfg.n_layers}L bf16, one prompt of "
+        f"{FLASH_T} tokens, chunks of {FLASH_CHUNK}: ref arm {t_ref:.3f}s, "
+        f"{m_ref / 2**30:.2f} GiB peak; cuda_fused arm {t_k:.3f}s, "
+        f"{m_k / 2**30:.2f} GiB peak; max |gap| hidden {gap_h:.3e}, last "
+        f"logits {gap_l:.3e} (up to {float(l_ref.abs().max()):.3e}); fused "
+        f"launches {counts['ppa_fused']['launches']}: {chunk} at the chunk "
+        f"shape {FLASH_FUSED_SHAPES['flash_chunk']}, {rescale} at the "
+        f"rescale shape; softmax kernel {counts['softmax_ppa']['launches']};"
+        f" plain calls {plain}")
+    del out, h, h_ref, params
+    _free(torch)
+    if gap_h != 0.0 or gap_l != 0.0:
+        raise AssertionError(f"flash: cuda_fused differs from ref (hidden "
+                             f"{gap_h}, logits {gap_l})")
+    if chunk < need or rescale < need:
+        raise AssertionError(f"flash: fused kernel launched {chunk} times "
+                             f"at the chunk shape and {rescale} at the "
+                             f"rescale shape, < layers x chunks = {need}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran in the kernel arm: "
+                             f"{plain}")
+    rows = path_rows(torch, dev, "flash", by_shape, flash_ranks=(4, 5))
+    log_rows("flash", rows)
+    return {"ppa_fused": {"total": counts["ppa_fused"]["launches"]}}, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1309,7 +1615,6 @@ def main() -> int:
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     failed = []
     rows = []
-    launches = {}
 
     def run(name, fn, *args):
         t0 = time.perf_counter()
@@ -1324,31 +1629,47 @@ def main() -> int:
             return None
 
     run("build", phase_build)
-    train = {}
     if not failed:
         rows = run("kernels", phase_kernels, torch, dev) or []
-        launches.update(run("serve", phase_serve, torch, dev, card) or {})
-        launches["ppa_int"] = run("serve_int", phase_serve_int, torch, dev)
+        paths = {
+            "serve": run("serve", phase_serve, torch, dev, card),
+            "serve_int": run("serve_int", phase_serve_int, torch, dev)}
         run("parity", phase_parity, torch, dev)
-        train = run("train", phase_train, torch, dev, card) or {}
-        launches["softmax_ppa_bwd"] = train.get("softmax_ppa_bwd")
+        paths["train"] = run("train", phase_train, torch, dev, card)
         run("train_parity", phase_train_parity, torch, dev)
         run("train_resume", phase_train_resume, torch, dev)
+        paths["serve_moe"] = run("serve_moe", phase_serve_moe, torch, dev,
+                                 card)
+        run("parity_moe", phase_parity, torch, dev, MOE_ARCH, 1,
+            "parity_moe")
+        paths["flash"] = run("flash", phase_flash, torch, dev)
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
-    paths = {"ppa_int": "serve internlm2-1.8b 2L cuda_int",
-             "softmax_ppa_bwd": "train internlm2-1.8b 24L cuda_fused"}
+    # each kernel's main path, whose run gives its "launches" and those at
+    # its standing shapes; every path's launches are counted from 0 over
+    # that path's run alone
+    main_path = {"ppa_int": ("serve_int", "serve internlm2-1.8b 2L "
+                             "cuda_int"),
+                 "ppa_fused": ("serve", "serve internlm2-1.8b 24L "
+                               "cuda_fused"),
+                 "softmax_ppa": ("serve", "serve internlm2-1.8b 24L "
+                                 "cuda_fused"),
+                 "softmax_ppa_bwd": ("train", "train internlm2-1.8b 24L "
+                                     "cuda_fused")}
     for r in rows:
-        r["launches"] = launches[r["name"]]["total"]
+        name = r["name"]
+        path, r["path"] = main_path[name]
+        launches = paths[path][0][name]
+        r["launches"] = launches["total"]
         for label, t in r["shapes"].items():
-            if label in launches[r["name"]]:
-                t["launches"] = launches[r["name"]][label]
-        r["path"] = paths.get(r["name"], "serve internlm2-1.8b 24L "
-                                         "cuda_fused")
-        if r["name"] in train and r["name"] != "softmax_ppa_bwd":
-            r["launches_train"] = train[r["name"]]["total"]
+            t["launches"] = launches.get(label, 0)
+        r["launches_by_path"] = {p: out[name]["total"]
+                                 for p, (out, _) in paths.items()
+                                 if name in out}
+        for _, path_shapes in paths.values():
+            r["shapes"].update(path_shapes.get(name, {}))
     log(card_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,17 +1,54 @@
-"""Arch registry: every ported architecture ships as
-``repro_torch/configs/<id>.py`` exposing ``config()`` (the published dims)
-and ``smoke()`` (a reduced same-family variant for CPU tests)."""
+"""Shape profiles and the arch registry.
+
+Every ported architecture ships as ``repro_torch/configs/<id>.py``
+exposing ``config()`` (the published dims) and ``smoke()`` (a reduced
+same-family variant for CPU tests).  :func:`apply_shape` sets the
+per-shape execution knobs of ``repro/configs/base.py``; the mesh padding
+(``resolve_for_mesh``) comes with the distributed port.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict, Optional
 
 from ..models.config import ModelCfg
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ShapeProfile", "SHAPES", "ARCH_IDS", "get_config",
+           "get_smoke_config", "apply_shape", "shape_skip_reason"]
 
-#: architectures whose every stage the port runs (dense ``dec`` only)
-ARCH_IDS = ("internlm2-1.8b",)
+
+@dataclasses.dataclass(frozen=True)
+class ShapeProfile:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeProfile] = {
+    "train_4k": ShapeProfile("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeProfile("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeProfile("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeProfile("long_500k", "decode", 524288, 1),
+}
+
+#: architectures whose every stage the port runs (the ``dec`` family)
+ARCH_IDS = (
+    "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "qwen3-14b", "internlm2-1.8b",
+    "mistral-nemo-12b", "qwen2-7b",
+)
+
+_SUBQUADRATIC = {"hymba-1.5b", "rwkv6-3b"}
+
+
+def shape_skip_reason(arch: str, shape: str) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else the documented skip."""
+    if shape == "long_500k" and arch not in _SUBQUADRATIC:
+        return ("full-attention arch: 524288-ctx needs sub-quadratic "
+                "attention (assignment: run for SSM/hybrid only)")
+    return None
 
 
 def _module(arch: str):
@@ -27,3 +64,21 @@ def get_config(arch: str) -> ModelCfg:
 
 def get_smoke_config(arch: str) -> ModelCfg:
     return _module(arch).smoke()
+
+
+def apply_shape(cfg: ModelCfg, shape: ShapeProfile) -> ModelCfg:
+    """Per-shape execution knobs: flash attention for prefill and training
+    at 16k tokens and beyond, the MoE mode and no recompute at decode,
+    chunked cross entropy in training."""
+    kw = {}
+    if shape.kind in ("prefill", "train") and shape.seq_len >= 16384:
+        kw["attn_impl"] = "flash"
+    if shape.kind == "decode":
+        kw["moe_mode"] = "token_gather"
+        kw["remat"] = "none"
+    else:
+        kw["moe_mode"] = "weight_gather"
+    if shape.kind == "train":
+        # chunked CE so the (B, T, V) logits never fully materialize
+        kw["ce_chunks"] = max(8, shape.seq_len // 512)
+    return cfg.replace(**kw)

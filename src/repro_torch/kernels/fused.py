@@ -40,6 +40,18 @@ def eval_ref(tc, x_int: torch.Tensor) -> torch.Tensor:
     return ppa_eval_ref(x_int, tc.starts, tc.coefs, tc.plan)
 
 
+def to_int32(q: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 as XLA converts, and as the kernel's
+    ``__float2int_rd``: saturating, NaN to 0.  A plain cast of a value
+    beyond the int32 range is undefined (INT_MIN on x86, whatever its
+    sign), which would put +inf and huge inputs below the table's
+    interval instead of beyond it."""
+    big = q >= 2.0 ** 31
+    q = torch.nan_to_num(q, nan=0.0).clamp(min=-2.0 ** 31)
+    return torch.where(big, torch.iinfo(torch.int32).max,
+                       q.masked_fill(big, 0.0).to(torch.int32))
+
+
 def condition_f32(tc, x0: torch.Tensor, eval_int, gate: bool
                   ) -> torch.Tensor:
     """float32 in -> float32 out deployment pipeline around ``eval_int``.
@@ -55,7 +67,7 @@ def condition_f32(tc, x0: torch.Tensor, eval_int, gate: bool
     neg = x0 < 0
 
     # quantize to the input grid (round-half-away)
-    x_int = torch.floor(xf.abs() * float(1 << tc.w_in) + 0.5).to(torch.int32)
+    x_int = to_int32(torch.floor(xf.abs() * float(1 << tc.w_in) + 0.5))
     x_int = torch.where(xf < 0, -x_int, x_int)
 
     oob_hi = x_int >= tc.hi

@@ -1,12 +1,18 @@
-"""Grouped-query attention, dense path: prefill and decode.
+"""Grouped-query attention: prefill (dense or flash-chunked) and decode.
 
-Counterpart of the dense path of ``repro/models/attention.py``, with its
+Counterpart of ``repro/models/attention.py`` for self-attention, with its
 layouts at the public functions: activations (B, T, H, D), scores
-(B, Hk, G, T, S).  The softmax goes through the ActBundle, so with a PPA
-bundle on the card it is the softmax kernel (csrc/softmax_ppa.cu) with the
-validity mask.  Decode keeps a ring-buffer KV cache: slots are addressed
-``pos % len`` and each slot remembers its absolute position.  Unlike the
-reference, decode writes the new K/V into the cache in place.
+(B, Hk, G, T, S).  Options: QKV bias (qwen2), qk-norm (qwen3), a sliding
+window, RoPE theta.  The dense softmax goes through the ActBundle, so with
+a PPA bundle on the card it is the softmax kernel (csrc/softmax_ppa.cu)
+with the validity mask.  The flash path is the reference's online softmax
+over KV chunks, a Python loop here; its exponentials go through
+``acts.exp_decay`` (on the card, the fused kernel on the ``exp_neg``
+table).  Decode keeps a ring-buffer KV cache: slots are addressed
+``pos % len`` and each slot remembers its absolute position, so a windowed
+stage keeps a ring of its window.  Unlike the reference, decode writes the
+new K/V into the cache in place.  Cross attention comes with the
+encoder-decoder port.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import torch
 from ..device import resolve_device
 from .activations import ActBundle
 from .common import P
-from .layers import rope
+from .layers import rmsnorm, rope
 
 __all__ = ["AttnCfg", "attn_params", "attention", "decode_attention",
            "init_kv_cache"]
@@ -28,17 +34,21 @@ __all__ = ["AttnCfg", "attn_params", "attention", "decode_attention",
 
 @dataclasses.dataclass(frozen=True)
 class AttnCfg:
-    """Global causal GQA with RoPE (no QKV bias, qk-norm or window yet)."""
-
     d_model: int
-    n_q: int
-    n_kv: int
+    n_q: int                    # query heads
+    n_kv: int                   # kv heads
     head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
     rope_theta: float = 10000.0
+    causal: bool = True
+    window: Optional[int] = None   # sliding window (None = global)
+    flash_chunk: int = 1024     # KV chunk for the flash path
+    softmax_scale: Optional[float] = None
 
     @property
     def scale(self) -> float:
-        return 1.0 / math.sqrt(self.head_dim)
+        return self.softmax_scale or 1.0 / math.sqrt(self.head_dim)
 
 
 def attn_params(cfg: AttnCfg, layers: Optional[int] = None) -> dict:
@@ -49,30 +59,52 @@ def attn_params(cfg: AttnCfg, layers: Optional[int] = None) -> dict:
         return P((layers,) + shape, ("layers",) + axes, **kw)
 
     d, hq, hk, dh = cfg.d_model, cfg.n_q, cfg.n_kv, cfg.head_dim
-    return {
+    out = {
         "wq": lp((d, hq, dh), ("embed", "q_heads", "head")),
         "wk": lp((d, hk, dh), ("embed", "kv_heads", "head")),
         "wv": lp((d, hk, dh), ("embed", "kv_heads", "head")),
         "wo": lp((hq, dh, d), ("q_heads", "head", "embed")),
     }
+    if cfg.qkv_bias:
+        out["bq"] = lp((hq, dh), ("q_heads", "head"), init="zeros")
+        out["bk"] = lp((hk, dh), ("kv_heads", "head"), init="zeros")
+        out["bv"] = lp((hk, dh), ("kv_heads", "head"), init="zeros")
+    if cfg.qk_norm:
+        out["q_norm"] = {"scale": lp((dh,), ("head",), init="ones")}
+        out["k_norm"] = {"scale": lp((dh,), ("head",), init="ones")}
+    return out
 
 
 def _project_qkv(params: dict, cfg: AttnCfg, x: torch.Tensor,
                  pos: torch.Tensor):
+    """Projections, then the bias, the qk rmsnorm and RoPE."""
     q = torch.einsum("btd,dhe->bthe", x, params["wq"])
     k = torch.einsum("bsd,dhe->bshe", x, params["wk"])
     v = torch.einsum("bsd,dhe->bshe", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
     q = rope(q, pos, theta=cfg.rope_theta)
     k = rope(k, pos, theta=cfg.rope_theta)
     return q, k, v
 
 
-def _mask(q_pos, k_pos) -> torch.Tensor:
-    """(..., T, S) bool causal validity from absolute positions (an empty
-    ring slot has position -1)."""
+def _mask(q_pos, k_pos, cfg: AttnCfg, window: Optional[int]
+          ) -> torch.Tensor:
+    """(..., T, S) bool validity from absolute positions (an empty ring
+    slot has position -1)."""
     qp = q_pos[..., :, None]
     kp = k_pos[..., None, :]
-    return (kp >= 0) & (kp <= qp)
+    valid = kp >= 0
+    if cfg.causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & (kp > qp - window)
+    return valid
 
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,18 +127,70 @@ def _dense_attn(q, k, v, valid, scale, acts: ActBundle) -> torch.Tensor:
     return out.reshape(b, t, hq, dh)
 
 
+def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnCfg, window,
+                acts: ActBundle) -> torch.Tensor:
+    """Online softmax over KV chunks: the reference's ``lax.scan`` as a
+    Python loop with the same (m, l, acc) recurrence.  The chunk is
+    ``cfg.flash_chunk``, shrunk until it divides S.  Each exponential is
+    ``acts.exp_decay(-x)`` = e^x for x <= 0, on the chunk scores and the
+    running-max rescale factors alike."""
+    b, t, hq, dh = q.shape
+    s, hk = k.shape[1], k.shape[2]
+    g = hq // hk
+    c = min(cfg.flash_chunk, s)
+    while s % c:
+        c -= 1
+    qg = q.reshape(b, t, hk, g, dh).to(torch.float32)
+
+    def expfn(x):
+        return acts.exp_decay(-x)
+
+    m = torch.full((b, hk, g, t), float("-inf"), dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hk, g, t), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hk, g, t, dh), dtype=torch.float32,
+                      device=q.device)
+    for j in range(s // c):
+        sl = slice(j * c, (j + 1) * c)
+        pj = k_pos[..., sl]
+        valid = _mask(q_pos, pj if pj.dim() == 2 else pj[None], cfg,
+                      window)[:, None, None]             # (b, 1, 1, t, c)
+        sc = torch.einsum("bthgd,bshd->bhgts", qg,
+                          k[:, sl].to(torch.float32)) * cfg.scale
+        sc = torch.where(valid, sc, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(valid, expfn(sc - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isfinite(m), expfn(m - m_new), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgts,bshd->bhgtd", p, v[:, sl].to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, dh).to(q.dtype)
+
+
 def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, acts: ActBundle,
               *, positions: Optional[torch.Tensor] = None,
+              window: Optional[int] = None, impl: str = "dense",
               return_kv: bool = False):
-    """Full-sequence causal self-attention (prefill).  With ``return_kv``
-    also returns the post-rope K and V for the decode cache."""
+    """Full-sequence self-attention (training and prefill), ``impl``
+    "dense" or "flash"; ``window`` overrides ``cfg.window``.  With
+    ``return_kv`` also returns the post-rope K and V for the decode
+    cache."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device).expand(b, t)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    valid = _mask(positions, positions)
-    out = _dense_attn(q, k, v, valid, cfg.scale, acts)
+    win = window if window is not None else cfg.window
+    if impl == "flash":
+        out = _flash_attn(q, k, v, positions, positions, cfg, win, acts)
+    elif impl == "dense":
+        out = _dense_attn(q, k, v, _mask(positions, positions, cfg, win),
+                          cfg.scale, acts)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
     y = torch.einsum("bthd,hde->bte", out, params["wo"])
     if return_kv:
         return y, (k, v)
@@ -127,10 +211,12 @@ def init_kv_cache(batch: int, cache_len: int, cfg: AttnCfg,
 
 
 def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
-                     cache: dict, pos: torch.Tensor, acts: ActBundle
+                     cache: dict, pos: torch.Tensor, acts: ActBundle, *,
+                     window: Optional[int] = None
                      ) -> Tuple[torch.Tensor, dict]:
     """One decode step: write the new K/V into its ring slot (in place),
-    attend.  x: (B, 1, D); pos: (B,) absolute position of the new token."""
+    attend.  x: (B, 1, D); pos: (B,) absolute position of the new token;
+    ``window`` overrides ``cfg.window``."""
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
     q, k_new, v_new = _project_qkv(params, cfg, x, pos[:, None])
@@ -139,7 +225,8 @@ def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
     cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
     cache["pos"][bidx, slot] = pos.to(torch.int32)
-    valid = _mask(pos[:, None], cache["pos"])             # (B, 1, S)
+    win = window if window is not None else cfg.window
+    valid = _mask(pos[:, None], cache["pos"], cfg, win)   # (B, 1, S)
     out = _dense_attn(q, cache["k"], cache["v"], valid, cfg.scale, acts)
     y = _einsum("bthd,hde->bte", out, params["wo"])
     return y, cache

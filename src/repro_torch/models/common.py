@@ -40,10 +40,18 @@ def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
     """Materialize a spec tree on ``device`` (None: the card) from one
     ``torch.Generator`` seeded with ``seed``.  Fan-in scaled normal (the
     second-to-last axis is the contraction) unless the spec gives a
-    stddev; norm scales ones.  Each leaf is drawn in float32 and cast."""
+    stddev; norm scales ones.  A leaf is drawn in float32 and cast, one
+    layer slice at a time when it is stacked on a ``layers`` axis, into a
+    tensor of its own dtype: a stacked expert leaf at full width would not
+    fit in float32 beside the model."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+
+    def draw(shape, std):
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return w.mul_(std)
 
     def mk(spec: P):
         dt = spec.dtype or dtype
@@ -56,9 +64,12 @@ def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
         else:
             fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
             std = 1.0 / math.sqrt(max(1, fan_in))
-        w = torch.randn(spec.shape, generator=gen, device=dev,
-                        dtype=torch.float32)
-        return w.mul_(std).to(dt)
+        if spec.axes[0] != "layers":
+            return draw(spec.shape, std).to(dt)
+        out = torch.empty(spec.shape, dtype=dt, device=dev)
+        for j in range(spec.shape[0]):
+            out[j] = draw(spec.shape[1:], std)
+        return out
 
     return map_tree(mk, specs)
 

@@ -12,7 +12,11 @@ sequences free their slot.
   then scatters the cache rows into their slots with one batched insert.
   Pads sit after each prompt, so causal attention never shows them to a
   real token, and each decode step overwrites the one pad ring slot that
-  would otherwise become visible.
+  would otherwise become visible.  A padded prompt never outgrows the
+  shortest ring (a sliding window's), and flash attention, whose chunking
+  follows the sequence length, groups by exact length without padding.
+  Pads go through an MoE router like real tokens and take expert
+  capacity, as in the reference.
 * **Batched sampling** — one argmax over all greedy rows and one Gumbel-max
   draw over all temperature rows: at most two device-to-host copies per
   step.  Each temperature sample draws one seed from the engine's host
@@ -38,6 +42,7 @@ import torch
 from ..device import resolve_device
 from ..models import (ModelCfg, decode_step, init_cache, make_acts, prefill,
                       prepare_params)
+from ..models.transformer import ring_len
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -101,6 +106,11 @@ class ServeEngine:
         self._has_deadlines = False     # skip the reap scan when unused
         self.coalesce = coalesce
         self.prefill_shapes: set = set()    # distinct (len, batch) prefills
+        # padding is sound only where chunking does not follow the length
+        self._paddable = cfg.attn_impl == "dense"
+        # pads must never enter a ring window: a padded prompt longer than
+        # the shortest ring would evict real tokens in their favour
+        self._min_eff = min(ring_len(st, cache_len) for st in cfg.stages)
 
     # ----------------------------------------------------------- admission
     def submit(self, req: Request) -> bool:
@@ -157,10 +167,13 @@ class ServeEngine:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
     def _bucket_len(self, prompt_len: int) -> int:
-        """Padded length for a prompt (== prompt_len when the bucket would
-        overflow the ring: pads must never evict real tokens)."""
+        """Padded length for a prompt (== prompt_len when padding is
+        unsound for this config or the bucket would overflow a ring: pads
+        must never evict real tokens)."""
+        if not self._paddable:
+            return prompt_len
         b = _bucket(prompt_len)
-        return prompt_len if b > self.cache_len else b
+        return prompt_len if b > self._min_eff else b
 
     def _draw_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self.rng))

@@ -142,3 +142,42 @@ def test_softmax_bwd_bound_by_hand_for_exp2_frac_16(cs):
         pytest.approx(202_375_392 / 3.35e9), "bytes")
     assert cs.softmax_bwd_bound(32_768, 2_048, 14, 2, False) == (
         pytest.approx(395_488 / 3.35e9), "bytes")
+
+
+def test_fused_bound_float32_without_gate_for_exp_neg_16(cs):
+    """Flash attention's exponentials: float32 in and out (4 B each way),
+    no gate product and no widening or narrowing, so 9 float32 operations
+    an element beside the 13 + 7 int32 ones; the bytes bound both of its
+    shapes (the PERF.md figures)."""
+    tab = load_table("exp_neg", 16)
+    assert (tab.num_segments, tab.order) == (468, 2)
+    table = 468 * 4 * 4
+    for shape in ((1, 8, 2, 16384, 1024), (1, 8, 2, 16384)):
+        n = 1
+        for d in shape:
+            n *= d
+        t_bytes = (8 * n + table) / 3.35e12 * 1e3
+        t_ops = max(20 * n / 16.75e12, (20 + 9) * n / 33.5e12) * 1e3
+        assert t_bytes > t_ops
+        got = cs.fused_bound(n, 4, 468, 2, False, gate=False)
+        assert got == (pytest.approx(t_bytes, rel=1e-12), "bytes")
+    assert cs.fused_bound(268_435_456, 4, 468, 2, False, gate=False) == (
+        pytest.approx(2_147_491_136 / 3.35e9), "bytes")
+    assert cs.fused_bound(262_144, 4, 468, 2, False, gate=False) == (
+        pytest.approx(2_104_640 / 3.35e9), "bytes")
+
+
+@pytest.mark.parametrize("itemsize,gate,fp_ops", [
+    (2, True, 12), (2, False, 11), (4, True, 10), (4, False, 9)])
+def test_fused_bound_counts_the_gate_and_the_casts(cs, itemsize, gate,
+                                                   fp_ops, monkeypatch):
+    """The float32 operations ``fused_bound`` hands ``bound``: 12 a bf16
+    gated element, one fewer without the gate product, two fewer for a
+    float32 input (no widening or narrowing)."""
+    seen = []
+    monkeypatch.setattr(cs, "bound", lambda *a: seen.append(a) or (0, ""))
+    n = 1000
+    cs.fused_bound(n, itemsize, 14, 2, False, gate=gate)
+    assert seen == [(2 * itemsize * n + cs.table_bytes(14, 2),
+                     n * (cs.datapath_ops(2, False) + cs.FUSED_INT_OPS),
+                     n * fp_ops)]

@@ -25,7 +25,7 @@ SOFTMAX_BWD_REL = 1e-6
 #: a kernel arm's gradient gap to the plain arm, over each leaf's largest
 #: gradient (chip_smoke.py's TRAIN_PARITY_LIMIT)
 TRAIN_PARITY_LIMIT = 2.0 ** -8
-#: the served model's launch shapes (decode, largest prefill bucket)
+#: the served model's decode shape and a full 4 x 128 prefill group
 FUSED_SHAPES = [(4, 1, 8192), (512, 8192)]
 SOFTMAX_SHAPES = [(4, 8, 2, 1, 512), (4, 8, 2, 128, 128)]
 #: the training scores (batch 4 x seq 512) and a decode row
@@ -312,3 +312,70 @@ def test_wrappers_count_launches_on_card():
     assert c["ppa_fused"] == {"launches": 1, "plain": 0}
     assert c["ppa_int"] == {"launches": 1}
     assert c["ref"]["plain"] == 0
+
+
+@pytest.mark.gpu
+def test_moe_block_on_card_matches_plain():
+    """moonshot's MoE block at a narrow width (d_model 256, 16 experts of
+    128, top 6, 2 shared, float32) on the card through the fused kernel,
+    against the same block on the CPU (the plain versions): the same
+    routed ids, the output within 2^-8 of its largest magnitude (a silu
+    input one float32 rounding from a grid boundary moves one step), the
+    kernel launched and no plain version run."""
+    from repro_torch.models import make_acts
+    from repro_torch.models import moe as M
+    dev = _card()
+    cfg = M.MoECfg(d_model=256, d_ff=128, n_experts=16, top_k=6,
+                   n_shared=2)
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen) * std
+    params = {"router": rnd(256, 16, std=0.0625),
+              "w_gate": rnd(16, 256, 128, std=0.0625),
+              "w_up": rnd(16, 256, 128, std=0.0625),
+              "w_down": rnd(16, 128, 256, std=0.088),
+              "shared": {"w_gate": rnd(256, 256, std=0.0625),
+                         "w_up": rnd(256, 256, std=0.0625),
+                         "w_down": rnd(256, 256, std=0.0625)}}
+    x = rnd(4, 32, 256)
+    on_card = {k: ({n: t.to(dev) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(dev))
+               for k, v in params.items()}
+    ids_cpu = M._route(x.reshape(-1, 256), params["router"], cfg)[0]
+    ids_card = M._route(x.reshape(-1, 256).to(dev), on_card["router"],
+                        cfg)[0]
+    assert torch.equal(ids_card.cpu(), ids_cpu)
+    want, aux_cpu = M.moe_block(params, x, cfg,
+                                make_acts("ppa", "cuda_fused", "cpu"))
+    K.reset_counts()
+    got, aux = M.moe_block(on_card, x.to(dev), cfg,
+                           make_acts("ppa", "cuda_fused", dev))
+    c = K.read_counts()
+    assert c["ppa_fused"]["launches"] == 2 and c["ppa_fused"]["plain"] == 0
+    assert c["ref"]["plain"] == 0
+    assert float((got.cpu() - want).abs().max()) <= (
+        2.0 ** -8 * float(want.abs().max()))
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-6 * float(aux_cpu)
+
+
+@pytest.mark.gpu
+def test_fused_kernel_at_flash_chunk_shape():
+    """exp_neg-16 on float32 without the gate at flash attention's chunk
+    and rescale shapes (internlm2, one 16k prompt, chunks of 1024), with
+    +inf where the causal mask hides a key and NaN where the first chunk
+    rescales -inf: equal to the plain version."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp_neg", 16), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape in ((1, 8, 2, 16384, 1024), (1, 8, 2, 16384)):
+        x = torch.randn(shape, generator=gen, device=dev).abs() * 4.0
+        if len(shape) == 5:
+            hidden = (torch.arange(1024, device=dev)[None, :]
+                      > torch.arange(16384, device=dev)[:, None])
+            x = x.masked_fill(hidden, float("inf"))
+        else:
+            x[..., 0] = float("nan")
+        got = fused.ppa_fused_apply(tc, x, False)
+        assert torch.equal(got, fused.ppa_fused_plain(tc, x, False)), shape
+        assert bool(torch.isfinite(got).all())

@@ -35,6 +35,11 @@ def _env():
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) >= 20
+    assert {"repro_torch.models.moe", "repro_torch.configs.qwen2_7b",
+            "repro_torch.configs.qwen3_14b",
+            "repro_torch.configs.mistral_nemo_12b",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.kimi_k2_1t_a32b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -149,15 +149,17 @@ def test_forward_hidden_matches_reference(model, store):
                                atol=LOGIT_GAP_BOUND)
 
 
-@pytest.mark.parametrize("field", ["qkv_bias", "qk_norm", "window", "moe"])
+@pytest.mark.parametrize("field", ["hyb", "rwkv", "enc_layers",
+                                   "vision_tokens", "layernorm"])
 def test_unported_options_are_refused(field):
     cfg = get_smoke_config(ARCH)
-    if field in ("window", "moe"):
-        st = dataclasses.replace(cfg.stages[0], **{field: 4 if field ==
-                                                   "window" else True})
-        cfg = cfg.replace(stages=(st,))
+    if field in ("hyb", "rwkv"):
+        cfg = cfg.replace(stages=(dataclasses.replace(cfg.stages[0],
+                                                      kind=field),))
+    elif field == "layernorm":
+        cfg = cfg.replace(norm="layernorm")
     else:
-        cfg = cfg.replace(**{field: True})
+        cfg = cfg.replace(**{field: 4})
     with pytest.raises(NotImplementedError):
         param_specs(cfg)
 
@@ -177,6 +179,25 @@ def test_bundle_member_matches_reference(store, impl, member):
             torch.from_numpy(x))
         np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                       want.view(np.uint32), backend)
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda_int", "cuda_fused"])
+def test_bundle_member_on_non_finite_and_huge_inputs(store, backend):
+    """+-inf, NaN and inputs beyond the int32 range of the input grid: the
+    reference converts float to int32 saturating (NaN to 0), as the fused
+    kernel does; a plain cast would put +inf below the interval (XLA's
+    sat_hi of exp_neg at +inf is 0, the table's start 1).  Bit for bit on
+    every member but the exact-derivative-free softmax."""
+    racts = ref_make_acts("ppa", "ref", store)
+    x = np.array([np.inf, -np.inf, np.nan, 3e9, -3e9, 1e7, -1e7, 0.5],
+                 np.float32)
+    for member in ("sigmoid", "tanh", "gelu", "silu", "softplus",
+                   "exp_decay"):
+        want = np.asarray(getattr(racts, member)(jnp.asarray(x)))
+        got = getattr(make_acts("ppa", backend, "cpu"), member)(
+            torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32), member)
 
 
 @pytest.mark.parametrize("impl", ["ppa", "ppa8"])
