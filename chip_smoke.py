@@ -63,8 +63,11 @@ Phases (any failure exits non-zero and prints no result line):
             from seed 0, 52.9 GiB), act_impl="ppa", cuda_fused, the serve
             phase's engine and traffic: every request finishes at its
             length, the fused and softmax kernels launch at least layers x
-            engine steps times, no plain version runs; launches by shape,
-            decode ms per step, tokens/s, peak memory
+            engine steps times and at each decode launch of every layer at
+            every decode step (``decode_launches``: the expert buffer, the
+            shared experts' and the dense layer's gates, the scores), no
+            plain version runs; launches by shape, decode ms per step,
+            tokens/s, peak memory
 11. parity_moe  moonshot at full width, 2 layers (the dense one and one
             MoE), float32: the parity phase's three arms and controls; the
             routed expert ids of every layer and call equal in all arms
@@ -73,19 +76,37 @@ Phases (any failure exits non-zero and prints no result line):
             cuda_fused arm's final hidden states and logits equal the ref
             arm's, the fused kernel launched at the chunk shape, no plain
             version in the kernel arm
+13. serve_hybrid  full-width hymba-1.5b (32 layers in 5 stages: attention
+            and a selective SSM in parallel, global attention at layers 0,
+            15 and 31, windows of 1024 elsewhere; random bf16 weights from
+            seed 0), act_impl="ppa", cuda_fused, the serve phase's engine
+            and traffic: every request finishes at its length, prompts
+            prefill at their exact lengths (no padding), the fused and
+            softmax kernels launch at least layers x engine steps times
+            and at each decode launch of every layer at every decode step
+            (``decode_launches``), no plain version runs
+14. parity_hybrid  hymba at full width, its first two stages (global
+            and windowed attention) at 1 layer each, float32: the parity
+            phase's three arms and controls (HYBRID_PARITY_STAGES)
+15. serve_rwkv  full-width rwkv6-3b (32 layers, 40 heads of 64,
+            attention-free) as serve_hybrid; the softmax never launches
+16. parity_rwkv  rwkv at full width, 2 layers, float32: no softmax, so
+            the three arms must be equal bit for bit
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
 1 to 4096 scores, and times it.  After each of serve, serve_int, train,
-serve_moe and flash, every input shape at which that run launched the
-integer, fused or softmax kernel (``read_shape_counts``) is held to the
-plain version and timed beside its bound (``path_rows``), and its row in
-the kernels line carries those launches.  The last two lines are a JSON object with one entry per kernel, then ``{"ok": true,
+serve_moe, flash, serve_hybrid and serve_rwkv, every input shape at which
+that run launched the integer, fused or softmax kernel (the fused kernel's
+by dtype, table and gate too: ``launched_shapes``) is held to the plain
+version and timed beside its bound (``path_rows``), and its row in the
+kernels line carries those launches.  The last two lines are a JSON object with one entry per kernel, then ``{"ok": true,
 "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import itertools
@@ -138,6 +159,14 @@ SOFTMAX_SHAPES = {"decode": (SERVE_SLOTS, 8, 2, 1, SERVE_CACHE_LEN),
 SOFTMAX_BWD_SHAPES = {"train": (TRAIN_BATCH, 8, 2, TRAIN_SEQ, TRAIN_SEQ),
                       "decode": SOFTMAX_SHAPES["decode"]}
 MOE_ARCH = "moonshot-v1-16b-a3b"
+HYBRID_ARCH, RWKV_ARCH = "hymba-1.5b", "rwkv6-3b"
+# hymba's parity keeps its first two stages (a global and a windowed one)
+# at one layer each.  Deeper, the model moves a logit by more than the
+# parity limit from a softmax move within the kernel's bound: at all five
+# stages the +-1e-6 control moved the logits by 5.1 of 4.0 and the
+# kernels' summation order by 0.18, against a limit of 0.016; at one stage
+# no control exceeds the limit (scripts/torch_hybrid_parity_depth.py).
+HYBRID_PARITY_STAGES = 2
 # Flash attention's exponentials, float32 into the fused kernel without
 # the gate on the exp_neg table: a chunk's scores (B, Hk, G, T, chunk) and
 # the running-max rescale (B, Hk, G, T), internlm2 at one 16k prompt.
@@ -601,36 +630,50 @@ def flash_input(torch, gen, dev, shape):
     return x
 
 
-def path_rows(torch, dev, path, by_shape, flash_ranks=()):
+def launched_shapes():
+    """A run's launches by input shape, {kernel: {shape: n}}
+    (``read_shape_counts``), and the fused kernel's by what it computed,
+    {(shape, dtype, table, gate): n} under "ppa_fused_variants"
+    (``read_variant_counts``): one shape may take several tables."""
+    from repro_torch.kernels import read_shape_counts, read_variant_counts
+    return {**read_shape_counts(),
+            "ppa_fused_variants": read_variant_counts()}
+
+
+def path_rows(torch, dev, path, by_shape):
     """{kernel: {label: row}} for every input shape at which the run of
     ``path`` launched the integer, fused and softmax kernels (its
-    ``read_shape_counts``), each with its launches there.  A row is
+    ``launched_shapes``), each with its launches there.  A row is
     ``int_row``, ``fused_row`` or ``softmax_row``: held to the plain
-    version, then timed beside its bound.  The fused kernel's input is the
-    served model's bf16 SwiGLU gate (gated, sigmoid_wide-16); at a rank in
-    ``flash_ranks`` it is flash attention's float32 ``m - s``
-    (``flash_input``, exp_neg-16, no gate)."""
+    version, then timed beside its bound.  The fused kernel's rows follow
+    its variants: the run's dtype, table and gate at each shape, on inputs
+    of the served model's scale, or on ``exp_neg`` the decays' and flash
+    attention's nonnegative inputs (``flash_input``)."""
     from repro_torch.kernels import fused, ppa, softmax_ppa
     from repro_torch.kernels.ops import pack_table
     from repro_torch.tables import load_table
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    sig, en, e2 = (pack_table(load_table(n, 16), dev)
-                   for n in ("sigmoid_wide", "exp_neg", "exp2_frac"))
+    tcs = {n: pack_table(load_table(n, 16), dev)
+           for n in ("sigmoid_wide", "exp2_frac")}
+    sig, e2 = tcs["sigmoid_wide"], tcs["exp2_frac"]
     out = {"ppa_int": {}, "ppa_fused": {}, "softmax_ppa": {}}
     for shape, n in sorted(by_shape["ppa_int"].items()):
         row, _ = int_row(torch, gen, dev, ppa, sig, shape)
         out["ppa_int"][f"{path} {shape}"] = dict(row, launches=n)
-    for shape, n in sorted(by_shape["ppa_fused"].items()):
-        if len(shape) in flash_ranks:
-            row = fused_row(torch, fused, en,
-                            flash_input(torch, gen, dev, shape), False)
+    for (shape, dtype, naf, gate), n in sorted(
+            by_shape["ppa_fused_variants"].items()):
+        if naf not in tcs:
+            tcs[naf] = pack_table(load_table(naf, 16), dev)
+        if naf == "exp_neg":
+            x = flash_input(torch, gen, dev, shape)
         else:
-            x = (torch.randn(shape, generator=gen, device=dev) * 3.0
-                 ).to(torch.bfloat16)
-            row = fused_row(torch, fused, sig, x, True)
-        out["ppa_fused"][f"{path} {shape}"] = dict(row, launches=n)
+            x = torch.randn(shape, generator=gen, device=dev) * 3.0
+        row = fused_row(torch, fused, tcs[naf], x.to(getattr(torch, dtype)),
+                        gate)
+        label = f"{path} {shape} {dtype} {naf}" + (" gated" if gate else "")
+        out["ppa_fused"][label] = dict(row, launches=n)
     for shape, n in sorted(by_shape["softmax_ppa"].items()):
         row = softmax_row(torch, gen, dev, softmax_ppa, e2, shape)
         out["softmax_ppa"][f"{path} {shape}"] = dict(row, launches=n)
@@ -859,7 +902,7 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens):
 
 def phase_serve(torch, dev, card):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import read_counts, read_shape_counts
+    from repro_torch.kernels import read_counts
 
     cfg = get_config("internlm2-1.8b").replace(
         act_impl="ppa", compute_dtype="bfloat16")
@@ -889,7 +932,7 @@ def phase_serve(torch, dev, card):
         f"(step time minus median decode); max_memory_allocated "
         f"{mem / 2**30:.2f} GiB; prefill shapes {sorted(eng.prefill_shapes)}"
         f"; card {card}")
-    by_shape = read_shape_counts()
+    by_shape = launched_shapes()
     # the launches in all and at each standing shape (kernel_times)
     out = {k: {"total": counts[k]["launches"],
                **{label: by_shape[k].get(shape, 0)
@@ -904,82 +947,129 @@ def phase_serve(torch, dev, card):
     return out, rows
 
 
-def phase_serve_moe(torch, dev, card):
-    """Full-width moonshot-v1-16b-a3b through the serve phase's engine and
-    traffic; returns the launches of the fused and softmax kernels and
+def decode_launches(cfg):
+    """{kernel: {launch: launches}} of one decode step of ``cfg`` (bf16)
+    at SERVE_SLOTS sequences: the fused kernel's by (input shape, dtype,
+    table, gate), the softmax's by scores shape.  Per layer: the softmax on
+    each attention stage's ring; the MLP's gate, or an MoE's expert buffer
+    (E, C, f) of SERVE_SLOTS tokens and its shared experts' gate; on
+    ``hyb`` also the SSM's silu (conv output and z), softplus and float32
+    decays (B, 1, di, N); on ``rwkv`` the tanh of the decay LoRA, the two
+    chained float32 exponentials, silu(g) and the channel mix's
+    sigmoid."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _moe_cfg, ring_len
+    b, bf, f32 = SERVE_SLOTS, "bfloat16", "float32"
+    fused, softmax = collections.Counter(), collections.Counter()
+    for st in cfg.stages:
+        n = st.n_layers
+        if st.kind == "rwkv":
+            h, dh = cfg.n_q, cfg.head_dim
+            fused[((b, 1, cfg.rwkv_decay_lora), bf, "tanh_wide", False)] += n
+            fused[((b, 1, h, dh), f32, "exp_neg", False)] += 2 * n
+            fused[((b, 1, h, dh), bf, "sigmoid_wide", True)] += n
+            fused[((b, 1, cfg.d_model), bf, "sigmoid_wide", False)] += n
+            continue
+        softmax[(b, cfg.n_kv, cfg.n_q // cfg.n_kv, 1,
+                 ring_len(st, SERVE_CACHE_LEN))] += n
+        if st.kind == "hyb":
+            di = cfg.ssm_inner
+            fused[((b, 1, di), bf, "sigmoid_wide", True)] += 2 * n
+            fused[((b, 1, di), bf, "softplus", False)] += n
+            fused[((b, 1, di, cfg.ssm_state), f32, "exp_neg", False)] += n
+        if st.moe:
+            mcfg = _moe_cfg(cfg)
+            fused[((mcfg.n_experts, moe._capacity(b, mcfg), mcfg.d_ff), bf,
+                   "sigmoid_wide", True)] += n
+            if mcfg.n_shared:
+                fused[((b, 1, mcfg.n_shared * mcfg.d_ff), bf,
+                       "sigmoid_wide", True)] += n
+        else:
+            fused[((b, 1, cfg.d_ff), bf, "sigmoid_wide", True)] += n
+    return {"ppa_fused": dict(fused), "softmax_ppa": dict(softmax)}
+
+
+def phase_serve_full(torch, dev, card, arch, tag):
+    """Full-width ``arch``, all its layers, through the serve phase's
+    engine and traffic: every request finishes at its length; a recurrent
+    model's prompts prefill at their exact lengths (its state forbids
+    padding); the fused kernel launches at least layers x engine steps
+    times, the softmax kernel as often where there is attention and never
+    where there is none, and each at every launch of every decode step
+    (``decode_launches``); no plain version runs.  Returns the launches and
     ``path_rows`` of this run."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import read_counts, read_shape_counts
+    from repro_torch.kernels import read_counts
+    from repro_torch.models.transformer import RECURRENT_KINDS
 
     _free(torch)
-    cfg = get_config(MOE_ARCH).replace(act_impl="ppa",
-                                       compute_dtype="bfloat16",
-                                       act_backend="cuda_fused")
+    cfg = get_config(arch).replace(act_impl="ppa", compute_dtype="bfloat16",
+                                   act_backend="cuda_fused")
     lens = [32, 128, 64, 96, 48, 128, 80, 112][:SERVE_REQUESTS]
     eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
                                     SERVE_NEW, lens)
-    counts, by_shape = read_counts(), read_shape_counts()
+    counts, by_shape = read_counts(), launched_shapes()
     mem = torch.cuda.max_memory_allocated(dev)
     n_steps = len(steps)
     need = cfg.n_layers * n_steps
-    for k in ("ppa_fused", "softmax_ppa"):
-        if counts[k]["launches"] < need:
-            raise AssertionError(f"{k} launched {counts[k]['launches']} "
-                                 f"times < layers x steps = {need}")
+    attn = any(st.kind != "rwkv" for st in cfg.stages)
     plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
-    if any(plain.values()):
-        raise AssertionError(f"plain versions ran on the MoE path: {plain}")
     decode = sorted(t for t, adm in steps if adm == 0)
     dec_ms = decode[len(decode) // 2] * 1e3
     adm_ms = [t * 1e3 - dec_ms for t, adm in steps if adm > 0]
     tokens = sum(len(r.output) for r in reqs)
-    log(f"[serve_moe] {MOE_ARCH} {cfg.n_layers}L ({cfg.stages[0].n_layers} "
-        f"dense + {cfg.stages[1].n_layers} MoE, {cfg.moe_experts} experts "
-        f"top {cfg.moe_topk}, {cfg.moe_shared} shared) d_model "
-        f"{cfg.d_model} bf16 act_impl=ppa act_backend={eng.cfg.act_backend}"
-        f": {len(reqs)} requests, {tokens} tokens in {wall:.3f}s = "
+    shapes = sorted(eng.prefill_shapes)
+    stages = [(st.kind, st.n_layers) + ((f"window {st.window}",)
+                                        if st.window else ())
+              + (("moe",) if st.moe else ()) for st in cfg.stages]
+    log(f"[{tag}] {arch} {cfg.n_layers}L {stages} d_model {cfg.d_model} "
+        f"bf16 act_impl=ppa act_backend={eng.cfg.act_backend}: "
+        f"{len(reqs)} requests, {tokens} tokens in {wall:.3f}s = "
         f"{tokens / wall:.1f} tok/s over {n_steps} engine steps; decode "
         f"{dec_ms:.2f} ms/step (median; each "
         f"{[round(t * 1e3, 2) for t in decode]}); prefill "
         f"{sum(adm_ms):.2f} ms in {len(adm_ms)} admission steps (step time "
         f"minus median decode); max_memory_allocated {mem / 2**30:.2f} GiB;"
-        f" prefill shapes {sorted(eng.prefill_shapes)}; card {card}")
+        f" prefill shapes (tokens, batch) {shapes}; card {card}")
+    log(f"[{tag}] launches fused={counts['ppa_fused']['launches']} softmax="
+        f"{counts['softmax_ppa']['launches']} (layers x steps = {need}); "
+        f"by shape {by_shape}; plain calls {plain}")
     del eng
     _free(torch)
-    # each decode step launches the fused kernel at the expert buffer of 4
-    # tokens (E, C, f), the shared experts' and the dense layer's gates,
-    # and the softmax at every layer's scores
-    from repro_torch.models import moe
-    from repro_torch.models.transformer import _moe_cfg
-    mcfg = _moe_cfg(cfg)
-    dense, moe_layers = (st.n_layers for st in cfg.stages)
-    decode_shapes = {
-        "ppa_fused": {
-            (mcfg.n_experts, moe._capacity(SERVE_SLOTS, mcfg), mcfg.d_ff):
-                moe_layers,
-            (SERVE_SLOTS, 1, cfg.moe_shared * mcfg.d_ff): moe_layers,
-            (SERVE_SLOTS, 1, cfg.d_ff): dense},
-        "softmax_ppa": {(SERVE_SLOTS, cfg.n_kv, cfg.n_q // cfg.n_kv, 1,
-                         SERVE_CACHE_LEN): cfg.n_layers}}
-    for k, shapes in decode_shapes.items():
-        for shape, n in shapes.items():
-            if by_shape[k].get(shape, 0) < n * len(decode):
+    padded = [s for s in shapes if s[0] not in lens]
+    if any(st.kind in RECURRENT_KINDS for st in cfg.stages) and padded:
+        raise AssertionError(f"{arch}: padded prefill groups {padded}")
+    if counts["ppa_fused"]["launches"] < need:
+        raise AssertionError(f"ppa_fused launched "
+                             f"{counts['ppa_fused']['launches']} times < "
+                             f"layers x steps = {need}")
+    sm = counts["softmax_ppa"]["launches"]
+    if attn and sm < need:
+        raise AssertionError(f"softmax_ppa launched {sm} times < {need}")
+    if not attn and sm:
+        raise AssertionError(f"softmax_ppa launched {sm} times in an "
+                             "attention-free model")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the {tag} path: "
+                             f"{plain}")
+    launched = {"ppa_fused": by_shape["ppa_fused_variants"],
+                "softmax_ppa": by_shape["softmax_ppa"]}
+    for k, per_step in decode_launches(cfg).items():
+        for key, n in per_step.items():
+            if launched[k].get(key, 0) < n * len(decode):
                 raise AssertionError(
-                    f"{k} at the decode shape {shape}: "
-                    f"{by_shape[k].get(shape, 0)} launches < {n} x "
+                    f"{k} at the decode launch {key}: "
+                    f"{launched[k].get(key, 0)} launches < {n} a step x "
                     f"{len(decode)} decode steps")
-    log(f"[serve_moe] launches fused={counts['ppa_fused']['launches']} "
-        f"softmax={counts['softmax_ppa']['launches']} (layers x steps = "
-        f"{need}); by shape {by_shape}; plain calls {plain}")
-    rows = path_rows(torch, dev, "serve_moe", by_shape)
-    log_rows("serve_moe", rows)
-    return {k: {"total": counts[k]["launches"]}
-            for k in ("ppa_fused", "softmax_ppa")}, rows
+    rows = path_rows(torch, dev, tag, by_shape)
+    log_rows(tag, rows)
+    return {"ppa_fused": {"total": counts["ppa_fused"]["launches"]},
+            "softmax_ppa": {"total": sm}}, rows
 
 
 def phase_serve_int(torch, dev):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import read_counts, read_shape_counts
+    from repro_torch.kernels import read_counts
 
     cfg = _cut(get_config("internlm2-1.8b"), 2).replace(
         act_impl="ppa", compute_dtype="bfloat16", act_backend="cuda_int")
@@ -995,7 +1085,7 @@ def phase_serve_int(torch, dev):
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the int path: {plain}")
     total = counts["ppa_int"]["launches"]
-    by_shape = read_shape_counts()
+    by_shape = launched_shapes()
     at_decode = by_shape["ppa_int"].get(INT_SHAPES["decode"], 0)
     decode = sorted(t for t, adm in steps if adm == 0)
     log(f"[serve_int] internlm2-1.8b 2L act_backend=cuda_int: {len(reqs)} "
@@ -1083,9 +1173,12 @@ def _moved_softmax(torch, dev, softmax, d, seed: int = 2):
 
 
 def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
-                 tag="parity"):
+                 tag="parity", stages=None):
     """The three arms and the controls on ``arch`` at full width, each
-    stage cut to ``per_stage`` layers, float32."""
+    stage cut to ``per_stage`` layers and, with ``stages``, only the first
+    ``stages`` stages kept, float32.  An attention-free model (rwkv) runs
+    no softmax, and the fused kernel is exact: there the arms must be
+    equal bit for bit, and the softmax controls do not apply."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import pack_table
@@ -1096,6 +1189,7 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
     _free(torch)
     cfg = _cut(get_config(arch), per_stage).replace(
         act_impl="ppa", compute_dtype="float32")
+    cfg = cfg.replace(stages=cfg.stages[:stages])
     params = prepare_params(
         init_params(param_specs(cfg), 0, device=dev), cfg)
     rng = np.random.default_rng(1)
@@ -1110,10 +1204,11 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
                                   make_acts("ppa", name, dev), silu_tc)
                 for name in PARITY_ARMS}
         ref_acts = make_acts("ppa", "ref", dev)
+        attn = any(st.kind != "rwkv" for st in cfg.stages)
         controls = {
             name: _parity_run(torch, params, cfg, prompt, dc.replace(
                 ref_acts, softmax=moved(ref_acts.softmax, d)), silu_tc)[1]
-            for name, d in PARITY_CONTROLS.items()}
+            for name, d in PARITY_CONTROLS.items() if attn}
     toks = {n: r[0] for n, r in runs.items()}
     scale = float(runs["ref"][1].abs().max())
     report = {}
@@ -1168,6 +1263,18 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
     # of 1.93e-2, the controls 5.4e-2 to 9.2e-2 beyond the bound and 2.1e-2
     # at its edge (PERF.md): the limit is tighter than the bound's worst
     # case, and looser than the kernels' gap by a factor of five.
+    if not attn:
+        unequal = {p: r for p, r in report.items()
+                   if r["gap"] != 0.0 or r["flips"] != 0}
+        if unequal:
+            raise AssertionError(f"attention-free, the arms must be equal: "
+                                 f"{unequal}")
+        del runs, params
+        _free(torch)
+        log(f"[{tag}] {arch} {cfg.n_layers}L float32: prefill + 8 greedy "
+            f"decode steps, equal tokens and logits bit for bit in all three"
+            f" arms (no softmax; the fused and integer kernels are exact)")
+        return
     fu = report["cuda_int|cuda_fused"]
     if fu["gap"] != 0.0 or fu["flips"] != 0:
         raise AssertionError(f"the fused kernel moved the logits: {fu}")
@@ -1308,8 +1415,7 @@ def phase_train(torch, dev, card):
     and at the training shapes, and ``path_rows`` of this run."""
     import math
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (read_counts, read_shape_counts,
-                                     reset_counts)
+    from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.launch.train import run_training
     from repro_torch.train import ScheduleCfg
 
@@ -1327,7 +1433,7 @@ def phase_train(torch, dev, card):
         batch_override=TRAIN_BATCH, seq_override=TRAIN_SEQ,
         opt_kind="adamw", sched=ScheduleCfg(peak_lr=3e-4, warmup_steps=2),
         log_every=1, device=dev)
-    counts, by_shape = read_counts(), read_shape_counts()
+    counts, by_shape = read_counts(), launched_shapes()
     mem = torch.cuda.max_memory_allocated(dev)
     losses, gnorms = out["losses"], out["grad_norms"]
     plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
@@ -1536,8 +1642,7 @@ def phase_flash(torch, dev):
     ``path_rows``."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (read_counts, read_shape_counts,
-                                     reset_counts)
+    from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.models import (forward_hidden, init_params, make_acts,
                                     param_specs, prepare_params)
     from repro_torch.models.layers import lm_head_logits
@@ -1564,7 +1669,7 @@ def phase_flash(torch, dev):
             torch.cuda.synchronize()
             out[name] = (h, logits, time.perf_counter() - t0,
                          torch.cuda.max_memory_allocated(dev),
-                         read_counts(), read_shape_counts())
+                         read_counts(), launched_shapes())
     (h_ref, l_ref, t_ref, m_ref, _, _), (h, lg, t_k, m_k, counts,
                                          by_shape) = out.values()
     gap_h = float((h.float() - h_ref.float()).abs().max())
@@ -1595,7 +1700,7 @@ def phase_flash(torch, dev):
     if any(plain.values()):
         raise AssertionError(f"plain versions ran in the kernel arm: "
                              f"{plain}")
-    rows = path_rows(torch, dev, "flash", by_shape, flash_ranks=(4, 5))
+    rows = path_rows(torch, dev, "flash", by_shape)
     log_rows("flash", rows)
     return {"ppa_fused": {"total": counts["ppa_fused"]["launches"]}}, rows
 
@@ -1638,11 +1743,20 @@ def main() -> int:
         paths["train"] = run("train", phase_train, torch, dev, card)
         run("train_parity", phase_train_parity, torch, dev)
         run("train_resume", phase_train_resume, torch, dev)
-        paths["serve_moe"] = run("serve_moe", phase_serve_moe, torch, dev,
-                                 card)
+        paths["serve_moe"] = run("serve_moe", phase_serve_full, torch, dev,
+                                 card, MOE_ARCH, "serve_moe")
         run("parity_moe", phase_parity, torch, dev, MOE_ARCH, 1,
             "parity_moe")
         paths["flash"] = run("flash", phase_flash, torch, dev)
+        paths["serve_hybrid"] = run("serve_hybrid", phase_serve_full,
+                                    torch, dev, card, HYBRID_ARCH,
+                                    "serve_hybrid")
+        run("parity_hybrid", phase_parity, torch, dev, HYBRID_ARCH, 1,
+            "parity_hybrid", HYBRID_PARITY_STAGES)
+        paths["serve_rwkv"] = run("serve_rwkv", phase_serve_full,
+                                  torch, dev, card, RWKV_ARCH, "serve_rwkv")
+        run("parity_rwkv", phase_parity, torch, dev, RWKV_ARCH, 2,
+            "parity_rwkv")
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")

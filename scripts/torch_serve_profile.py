@@ -44,9 +44,9 @@ def profile(arch: str, steps: int, dev):
 
     cfg = get_config(arch).replace(act_impl="ppa", compute_dtype="bfloat16",
                                    act_backend="cuda_fused")
-    torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
                          device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
     eng = ServeEngine(cfg, params, n_slots=cs.SERVE_SLOTS,
                       cache_len=cs.SERVE_CACHE_LEN, device=dev)

@@ -23,12 +23,15 @@ from .build import (VECTOR_BYTES, check_cuda_input, get_lib, raise_on_error,
 from .ref import ppa_eval_ref
 
 __all__ = ["condition_f32", "counts", "ppa_fused_apply", "ppa_fused_plain",
-           "shape_counts"]
+           "shape_counts", "variant_counts"]
 
 #: kernel launches and plain-version calls
 counts = {"launches": 0, "plain": 0}
 #: kernel launches by input shape
 shape_counts: collections.Counter = collections.Counter()
+#: kernel launches by (input shape, dtype name, table's NAF, gate): what a
+#: launch computes, where one shape takes several tables
+variant_counts: collections.Counter = collections.Counter()
 
 _SYMMETRY_CODE = {None: 0, "odd": 1, "sigmoid": 2, "minus_x": 3}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -133,4 +136,6 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
     raise_on_error(rc, "ppa_fused")
     counts["launches"] += 1
     shape_counts[tuple(x.shape)] += 1
+    variant_counts[(tuple(x.shape), str(x.dtype).replace("torch.", ""),
+                    tc.naf, bool(gate))] += 1
     return y

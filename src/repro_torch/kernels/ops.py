@@ -207,7 +207,10 @@ def _apply(tc: TableConsts, x: torch.Tensor, backend: str, gate: bool
            ) -> torch.Tensor:
     be = get_backend(backend)
     if be.apply is not None:
-        return be.apply(tc, x, gate)
+        # the fused kernel reads a contiguous tensor: a view (the SSM's z,
+        # half of its input projection) is copied first, as the softmax's
+        # input is (_last_axis)
+        return be.apply(tc, x.contiguous(), gate)
     return condition_f32(tc, x.to(torch.float32), be.eval_int,
                          gate).to(x.dtype)
 

@@ -1,15 +1,21 @@
-"""Model assembly for ``dec`` stages (dense or MoE decoder blocks):
-parameter specs, prefill, decode and the training loss.
+"""Model assembly: parameter specs, prefill, decode and the training loss
+for ``dec`` stages (dense or MoE decoder blocks), ``hyb`` stages (hymba:
+attention and a selective SSM in parallel, then a gated MLP) and ``rwkv``
+stages (RWKV6 time-mix and channel-mix, attention-free).
 
-Counterpart of the ``dec`` path of ``repro/models/transformer.py``: each
+Counterpart of ``repro/models/transformer.py`` for those kinds.  A ``dec``
 block is self-attention (QKV bias, qk-norm, a sliding window and dense or
 flash attention as the config says) plus a gated MLP, or an MoE on a
-``moe`` stage.  The reference scans a stacked layer axis under
+``moe`` stage; a ``hyb`` block adds half the attention and half the SSM
+mixer to the residual.  The reference scans a stacked layer axis under
 ``jax.lax.scan``; here :func:`prepare_params` casts the parameters to
 ``compute_dtype`` once and splits the stack into per-layer views, which a
 Python loop walks.  The decode cache keeps the reference's stacked layout
-(L, B, S, Hk, D) per stage, S the stage's ring (its window when that is
-shorter than the cache), and is updated in place.
+per stage: ``kv`` {"k", "v": (L, B, S, Hk, D), "pos"}, S the stage's ring
+(its window when that is shorter than the cache), on ``dec`` and ``hyb``
+stages; ``ssm`` {"conv": (L, B, K-1, di), "h": (L, B, di, N) float32} on
+``hyb``; ``rwkv`` {"tm_last", "cm_last": (L, B, 1, D), "s": (L, B, H, D,
+D) float32} on ``rwkv``.  Decode updates it in place.
 
 :func:`loss_fn` casts the (float32 master) parameters inside the autograd
 graph, as the reference's ``_cast_params``, and splits each stacked leaf
@@ -19,7 +25,8 @@ layers of the MoE load-balance loss.  ``cfg.remat`` recomputes each layer
 in the backward: ``"full"`` all of it, ``"dots"`` all but the outputs of
 its matrix products without batch dimensions (the reference's
 ``checkpoint_dots_with_no_batch_dims``: the experts' batched products are
-recomputed), ``"none"`` nothing.
+recomputed), ``"none"`` nothing.  The recurrent mixers also recompute
+each of their chunks, as the reference's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..tree import map_trees
 from .activations import ActBundle
 from .attention import (AttnCfg, attn_params, attention, decode_attention,
                         init_kv_cache)
@@ -41,6 +49,11 @@ from .layers import (cross_entropy_chunked, embed_lookup, lm_head_logits,
                      rmsnorm, rmsnorm_params)
 from .mlp import gated_mlp, gated_mlp_params
 from .moe import MoECfg, moe_block, moe_params
+from .rwkv import (RWKVCfg, init_rwkv_state, rwkv_channel_mix,
+                   rwkv_channel_params, rwkv_time_mix, rwkv_time_params,
+                   time_core)
+from .ssm import (SSMCfg, init_ssm_state, ssm_decode_step, ssm_mixer,
+                  ssm_params)
 
 __all__ = ["param_specs", "prepare_params", "forward_hidden", "init_cache",
            "prefill", "decode_step", "loss_fn", "ring_len"]
@@ -53,13 +66,21 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_dec(cfg: ModelCfg) -> None:
-    """Refuse what the port does not run yet: the hybrid SSM, RWKV and
-    encoder-decoder stages, the vision prefix and layernorm."""
+#: the stage kinds the port runs
+PORTED_KINDS = ("dec", "hyb", "rwkv")
+#: the kinds whose decode cache carries state in prompt order (an SSM or
+#: RWKV recurrence), which right-padding would run on past the prompt
+RECURRENT_KINDS = ("hyb", "rwkv")
+
+
+def _check_ported(cfg: ModelCfg) -> None:
+    """Refuse what the port does not run yet: the encoder-decoder stages,
+    the vision prefix and layernorm."""
     for st in cfg.stages:
-        if st.kind != "dec":
+        if st.kind not in PORTED_KINDS:
             raise NotImplementedError(
-                f"{cfg.arch}: only 'dec' stages are ported (got {st.kind})")
+                f"{cfg.arch}: stage kind {st.kind!r} is not ported "
+                f"(ported: {PORTED_KINDS})")
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"{cfg.arch}: only rmsnorm is ported")
     if cfg.vision_tokens or cfg.enc_layers:
@@ -82,6 +103,18 @@ def _moe_cfg(cfg: ModelCfg) -> MoECfg:
         n_shared=cfg.moe_shared, mode=cfg.moe_mode)
 
 
+def _ssm_cfg(cfg: ModelCfg) -> SSMCfg:
+    return SSMCfg(d_model=cfg.d_model, d_inner=cfg.ssm_inner,
+                  d_state=cfg.ssm_state, d_conv=cfg.ssm_conv,
+                  dt_rank=cfg.ssm_dt_rank, chunk=cfg.ssm_chunk)
+
+
+def _rwkv_cfg(cfg: ModelCfg) -> RWKVCfg:
+    return RWKVCfg(d_model=cfg.d_model, n_heads=cfg.n_q,
+                   head_dim=cfg.head_dim, decay_lora=cfg.rwkv_decay_lora,
+                   d_ff=cfg.d_ff, chunk=cfg.rwkv_chunk)
+
+
 def _stage_key(i: int, st: StageCfg) -> str:
     return f"s{i}_{st.kind}"
 
@@ -93,9 +126,16 @@ def ring_len(st: StageCfg, cache_len: int) -> int:
 
 def _stage_specs(cfg: ModelCfg, st: StageCfg) -> dict:
     l = st.n_layers
+    if st.kind == "rwkv":
+        return {"ln1": rmsnorm_params(cfg.d_model, l),
+                "tm": rwkv_time_params(_rwkv_cfg(cfg), l),
+                "ln2": rmsnorm_params(cfg.d_model, l),
+                "cm": rwkv_channel_params(_rwkv_cfg(cfg), l)}
     out = {"ln1": rmsnorm_params(cfg.d_model, l),
            "attn": attn_params(_attn_cfg(cfg, st), l),
            "ln2": rmsnorm_params(cfg.d_model, l)}
+    if st.kind == "hyb":
+        out["ssm"] = ssm_params(_ssm_cfg(cfg), l)
     if st.moe:
         out["moe"] = moe_params(_moe_cfg(cfg), l)
     else:
@@ -104,7 +144,7 @@ def _stage_specs(cfg: ModelCfg, st: StageCfg) -> dict:
 
 
 def param_specs(cfg: ModelCfg) -> dict:
-    _check_dec(cfg)
+    _check_ported(cfg)
     out: Dict[str, Any] = {
         "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
         "ln_f": rmsnorm_params(cfg.d_model),
@@ -121,7 +161,7 @@ def prepare_params(params: dict, cfg: ModelCfg, device=None) -> dict:
     """Cast floating parameters to ``compute_dtype`` (once), move them to
     ``device`` (None: where they are) and split every stage's stacked layer
     axis into a list of per-layer dicts (views)."""
-    _check_dec(cfg)
+    _check_ported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     cast = map_tree(
         lambda t: t.to(device=device,
@@ -157,13 +197,54 @@ def _ffn(cfg: ModelCfg, st: StageCfg, p: dict, x: torch.Tensor,
 
 
 def _layer(cfg, st, acts, positions, h, p):
-    """One ``dec`` block on a full sequence: (h, (k, v), aux or None)."""
-    a, kv = attention(p["attn"], _attn_cfg(cfg, st), rmsnorm(h, p["ln1"]),
-                      acts, positions=positions, impl=cfg.attn_impl,
+    """One block on a full sequence: (h, its decode state unpacked, aux or
+    None).  The state is {"kv": (k, v)} and, on a ``hyb`` block, the SSM's
+    final carry; on an ``rwkv`` block {"rwkv": {"tm_last", "cm_last",
+    "s"}}."""
+    hn = rmsnorm(h, p["ln1"])
+    if st.kind == "rwkv":
+        rcfg = _rwkv_cfg(cfg)
+        y, (tm_last, s) = rwkv_time_mix(p["tm"], rcfg, hn, acts,
+                                        return_state=True)
+        h = h + y
+        hn2 = rmsnorm(h, p["ln2"])
+        h = h + rwkv_channel_mix(p["cm"], rcfg, hn2, acts)
+        return h, {"rwkv": {"tm_last": tm_last, "cm_last": hn2[:, -1:],
+                            "s": s}}, None
+    a, kv = attention(p["attn"], _attn_cfg(cfg, st), hn, acts,
+                      positions=positions, impl=cfg.attn_impl,
                       return_kv=True)
-    h = h + a
+    state = {"kv": kv}
+    if st.kind == "hyb":
+        s, state["ssm"] = ssm_mixer(p["ssm"], _ssm_cfg(cfg), hn, acts,
+                                    return_state=True)
+        h = h + 0.5 * (a + s)
+    else:
+        h = h + a
     y, aux = _ffn(cfg, st, p, rmsnorm(h, p["ln2"]), acts)
-    return h + y, kv, aux
+    return h + y, state, aux
+
+
+def _pack_state(state: dict, positions, eff: int, dtype) -> dict:
+    """A layer's decode-cache entry from its ``_layer`` state: K/V into a
+    ring of ``eff``, the SSM conv window and the RWKV token shifts in the
+    cache dtype, the recurrent states in float32.  Each is a copy: a carry
+    is a view of its chunk's whole state tensor (RWKV's (B, T, H, D, D)
+    float32, 42 MB a layer for one 64-token chunk at rwkv6-3b's width),
+    which the packed layers would otherwise keep alive to the end of the
+    prefill."""
+    out = {}
+    if "kv" in state:
+        out["kv"] = _pack_ring(*state["kv"], positions, eff, dtype)
+    if "ssm" in state:
+        out["ssm"] = {"conv": state["ssm"]["conv"].to(dtype, copy=True),
+                      "h": state["ssm"]["h"].clone()}
+    if "rwkv" in state:
+        st = state["rwkv"]
+        out["rwkv"] = {"tm_last": st["tm_last"].to(dtype, copy=True),
+                       "cm_last": st["cm_last"].to(dtype, copy=True),
+                       "s": st["s"].clone()}
+    return out
 
 
 def _prefill_hidden(params, cfg, tokens, acts, cache_len, cache_dtype):
@@ -176,29 +257,36 @@ def _prefill_hidden(params, cfg, tokens, acts, cache_len, cache_dtype):
         key = _stage_key(i, st)
         packed = []
         for p in params["stages"][key]:
-            h, (k, v), _ = _layer(cfg, st, acts, positions, h, p)
+            h, state, _ = _layer(cfg, st, acts, positions, h, p)
             if cache_len is not None:
-                packed.append(_pack_ring(k, v, positions,
-                                         ring_len(st, cache_len), cache_dtype))
+                packed.append(_pack_state(state, positions,
+                                          ring_len(st, cache_len),
+                                          cache_dtype))
         if cache_len is not None:
-            cache[key] = {"kv": {n: torch.stack([c[n] for c in packed])
-                                 for n in ("k", "v", "pos")}}
+            cache[key] = map_trees(lambda *ls: torch.stack(ls), *packed)
     return rmsnorm(h, params["ln_f"]), cache
 
 
 def init_cache(cfg: ModelCfg, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Empty decode cache: per stage {"kv": {"k", "v": (L, B, S, Hk, D),
-    "pos": (L, B, S) = -1}}, S the stage's ring (``ring_len``)."""
-    _check_dec(cfg)
+    """Empty decode cache in the layout the module docstring gives: K/V
+    rings with every position -1, zero recurrent states."""
+    _check_ported(cfg)
     device = resolve_device(device)
     out = {}
     for i, st in enumerate(cfg.stages):
-        one = init_kv_cache(batch, ring_len(st, cache_len), _attn_cfg(cfg, st),
-                            dtype, device)
-        out[_stage_key(i, st)] = {"kv": {
-            n: t.unsqueeze(0).repeat((st.n_layers,) + (1,) * t.dim())
-            for n, t in one.items()}}
+        one = {}
+        if st.kind != "rwkv":
+            one["kv"] = init_kv_cache(batch, ring_len(st, cache_len),
+                                      _attn_cfg(cfg, st), dtype, device)
+        if st.kind == "hyb":
+            one["ssm"] = init_ssm_state(batch, _ssm_cfg(cfg), dtype, device)
+        if st.kind == "rwkv":
+            one["rwkv"] = init_rwkv_state(batch, _rwkv_cfg(cfg), cfg.d_model,
+                                          dtype, device)
+        out[_stage_key(i, st)] = map_trees(
+            lambda t, n=st.n_layers: t.unsqueeze(0).repeat(
+                (n,) + (1,) * t.dim()), one)
     return out
 
 
@@ -237,6 +325,36 @@ def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
     return lm_head_logits(last, _head(params)), cache
 
 
+def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h):
+    """Layer ``j`` of a stage at one decode step; writes its cache entries
+    in place."""
+    hn = rmsnorm(h, p["ln1"])
+    if st.kind == "rwkv":
+        rcfg, c = _rwkv_cfg(cfg), cache["rwkv"]
+        y, tm_last, s = time_core(p["tm"], rcfg, hn, c["tm_last"][j],
+                                  c["s"][j], acts)
+        h = h + y
+        hn2 = rmsnorm(h, p["ln2"])
+        h = h + rwkv_channel_mix(p["cm"], rcfg, hn2, acts,
+                                 x_last=c["cm_last"][j])
+        for name, new in (("tm_last", tm_last), ("cm_last", hn2), ("s", s)):
+            c[name][j].copy_(new)
+        return h
+    layer_kv = {n: cache["kv"][n][j] for n in ("k", "v", "pos")}
+    a, _ = decode_attention(p["attn"], _attn_cfg(cfg, st), hn, layer_kv,
+                            pos, acts)
+    if st.kind == "hyb":
+        c = cache["ssm"]
+        s, new = ssm_decode_step(p["ssm"], _ssm_cfg(cfg), hn,
+                                 {n: c[n][j] for n in ("conv", "h")}, acts)
+        for name in ("conv", "h"):
+            c[name][j].copy_(new[name])
+        h = h + 0.5 * (a + s)
+    else:
+        h = h + a
+    return h + _ffn(cfg, st, p, rmsnorm(h, p["ln2"]), acts)[0]
+
+
 def decode_step(params: dict, cfg: ModelCfg, cache: dict,
                 tokens: torch.Tensor, pos: torch.Tensor, acts: ActBundle
                 ) -> Tuple[torch.Tensor, dict]:
@@ -245,14 +363,8 @@ def decode_step(params: dict, cfg: ModelCfg, cache: dict,
     h = embed_lookup(params["embed"], tokens)
     for i, st in enumerate(cfg.stages):
         key = _stage_key(i, st)
-        acfg = _attn_cfg(cfg, st)
-        kv = cache[key]["kv"]
         for j, p in enumerate(params["stages"][key]):
-            layer_kv = {n: kv[n][j] for n in ("k", "v", "pos")}
-            a, _ = decode_attention(p["attn"], acfg, rmsnorm(h, p["ln1"]),
-                                    layer_kv, pos, acts)
-            h = h + a
-            h = h + _ffn(cfg, st, p, rmsnorm(h, p["ln2"]), acts)[0]
+            h = _decode_layer(cfg, st, acts, p, cache[key], j, pos, h)
     h = rmsnorm(h, params["ln_f"])
     return lm_head_logits(h, _head(params))[:, 0], cache
 
@@ -300,7 +412,7 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict, acts: ActBundle
     (B, T) int, optional "loss_mask"}) under the raw (float32 master)
     ``params``: (loss, {"nll", "aux", "denom"}), differentiable in the
     params."""
-    _check_dec(cfg)
+    _check_ported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     p = map_tree(lambda t: t.to(dt) if t.is_floating_point() else t, params)
     h = embed_lookup(p["embed"], batch["tokens"])

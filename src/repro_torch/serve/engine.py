@@ -13,10 +13,11 @@ sequences free their slot.
   Pads sit after each prompt, so causal attention never shows them to a
   real token, and each decode step overwrites the one pad ring slot that
   would otherwise become visible.  A padded prompt never outgrows the
-  shortest ring (a sliding window's), and flash attention, whose chunking
-  follows the sequence length, groups by exact length without padding.
-  Pads go through an MoE router like real tokens and take expert
-  capacity, as in the reference.
+  shortest ring (a sliding window's).  Flash attention, whose chunking
+  follows the sequence length, and the recurrent stages (``hyb``,
+  ``rwkv``), whose state a pad would advance, group by exact length
+  without padding.  Pads go through an MoE router like real tokens and
+  take expert capacity, as in the reference.
 * **Batched sampling** — one argmax over all greedy rows and one Gumbel-max
   draw over all temperature rows: at most two device-to-host copies per
   step.  Each temperature sample draws one seed from the engine's host
@@ -42,7 +43,8 @@ import torch
 from ..device import resolve_device
 from ..models import (ModelCfg, decode_step, init_cache, make_acts, prefill,
                       prepare_params)
-from ..models.transformer import ring_len
+from ..models.transformer import RECURRENT_KINDS, ring_len
+from ..tree import leaves_with_path
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -106,8 +108,12 @@ class ServeEngine:
         self._has_deadlines = False     # skip the reap scan when unused
         self.coalesce = coalesce
         self.prefill_shapes: set = set()    # distinct (len, batch) prefills
-        # padding is sound only where chunking does not follow the length
-        self._paddable = cfg.attn_impl == "dense"
+        # padding is sound only where no stage carries prompt-order state
+        # past the pads (the SSM's conv window and h, RWKV's shifts and S)
+        # and chunking does not follow the length (flash); otherwise groups
+        # coalesce by exact prompt length, batched and never padded
+        self._paddable = cfg.attn_impl == "dense" and not any(
+            st.kind in RECURRENT_KINDS for st in cfg.stages)
         # pads must never enter a ring window: a padded prompt longer than
         # the shortest ring would evict real tokens in their favour
         self._min_eff = min(ring_len(st, cache_len) for st in cfg.stages)
@@ -235,14 +241,16 @@ class ServeEngine:
     def _insert_cache(self, slots: Sequence[int], cache1,
                       rows: Sequence[int]) -> None:
         """Scatter prefill cache rows into slot rows, one batched copy per
-        cache tensor (layout (L, B, ...))."""
+        cache leaf (K/V rings, SSM and RWKV states; layout (L, B, ...)), each
+        in its own dtype: a reused slot keeps nothing of its last
+        request."""
         sl = torch.as_tensor(list(slots), dtype=torch.long,
                              device=self.device)
         rw = torch.as_tensor(list(rows), dtype=torch.long,
                              device=self.device)
-        for key, stage in self.cache.items():
-            for name, full in stage["kv"].items():
-                full[:, sl] = cache1[key]["kv"][name][:, rw].to(full.dtype)
+        new = dict(leaves_with_path(cache1))
+        for path, full in leaves_with_path(self.cache):
+            full[:, sl] = new[path][:, rw].to(full.dtype)
 
     # ------------------------------------------------------------ sampling
     def _sample_rows(self, logits: torch.Tensor, temps: Sequence[float],

@@ -1,6 +1,6 @@
 """Each CUDA kernel of the PyTorch port against its plain PyTorch version,
-and one train step against the plain versions, on the card (they skip
-where there is none).  No JAX here, so the file runs
+one train step against the plain versions, and the recurrent smoke
+configs served, on the card (they skip where there is none).  No JAX here, so the file runs
 on the machine with the card:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -379,3 +379,40 @@ def test_fused_kernel_at_flash_chunk_shape():
         got = fused.ppa_fused_apply(tc, x, False)
         assert torch.equal(got, fused.ppa_fused_plain(tc, x, False)), shape
         assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-3b"])
+def test_recurrent_smoke_serves_on_card(arch):
+    """The smoke config of a recurrent kind (hymba's attention + SSM,
+    RWKV6) with act_impl="ppa" served on the card through cuda_fused:
+    every request finishes; the fused kernel launches at least layers x
+    engine steps times, the softmax kernel as often with hymba's attention
+    and never without attention; no plain version runs; prompts prefill
+    at their exact lengths."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.serve import Request, ServeEngine
+    dev = _card()
+    cfg = get_smoke_config(arch).replace(act_impl="ppa")
+    eng = ServeEngine(cfg, init_params(param_specs(cfg), 0, device=dev),
+                      n_slots=4, cache_len=64, act_backend="cuda_fused",
+                      device=dev)
+    rng = np.random.default_rng(0)
+    lens = (9, 5, 9, 11, 5, 9)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), max_new_tokens=6) for i, n in enumerate(lens)]
+    K.reset_counts()
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while eng.step() or eng.queue:
+        steps += 1
+    assert all(r.done and len(r.output) == 6 for r in reqs)
+    c = K.read_counts()
+    need = cfg.n_layers * steps
+    assert c["ppa_fused"]["launches"] >= need
+    sm = c["softmax_ppa"]["launches"]
+    assert sm >= need if arch == "hymba-1.5b" else sm == 0
+    assert not any(v.get("plain", 0) for v in c.values())
+    assert {n for n, _ in eng.prefill_shapes} == set(lens)

@@ -39,7 +39,10 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.configs.qwen3_14b",
             "repro_torch.configs.mistral_nemo_12b",
             "repro_torch.configs.moonshot_v1_16b_a3b",
-            "repro_torch.configs.kimi_k2_1t_a32b"} <= set(mods)
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.models.scan", "repro_torch.models.ssm",
+            "repro_torch.models.rwkv", "repro_torch.configs.hymba_1_5b",
+            "repro_torch.configs.rwkv6_3b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
