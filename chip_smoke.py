@@ -92,11 +92,30 @@ Phases (any failure exits non-zero and prints no result line):
             attention-free) as serve_hybrid; the softmax never launches
 16. parity_rwkv  rwkv at full width, 2 layers, float32: no softmax, so
             the three arms must be equal bit for bit
+17. serve_whisper  full-width whisper-medium (a 24-layer encoder on 1500
+            frames and 24 ``xdec`` layers: self-attention, cross attention
+            to the encoder's output, a plain MLP with gelu; layernorm; random
+            bf16 weights from seed 0), act_impl="ppa", cuda_fused, the serve
+            phase's engine and traffic, each request with its own frame
+            embeddings ``enc_feats`` N(0, 0.1) of (1500, 1024) from the
+            seeded generator: as serve_hybrid, with the softmax at every
+            self- and cross-attention launch of every decode step
+18. parity_whisper  whisper at full width, 1 encoder and 1 decoder layer,
+            float32, a float32 decode cache (WHISPER_PARITY_LAYERS): the
+            parity phase's three arms and controls, the gelu table's
+            inputs counted as the silu's are
+19. serve_vlm  full-width internvl2-26b (48 ``dec`` layers of d_model 6144
+            after 256 vision tokens, 36.99 GiB of bf16 weights), each
+            request with its own patch embeddings ``vision_embeds`` N(0,
+            0.02) of (256, 6144): as serve_whisper
+20. parity_vlm  internvl at full width, 2 layers, float32, the vision
+            prefix before each prompt: the parity phase's arms and controls
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
 1 to 4096 scores, and times it.  After each of serve, serve_int, train,
-serve_moe, flash, serve_hybrid and serve_rwkv, every input shape at which
+serve_moe, flash, serve_hybrid, serve_rwkv, serve_whisper and serve_vlm,
+every input shape at which
 that run launched the integer, fused or softmax kernel (the fused kernel's
 by dtype, table and gate too: ``launched_shapes``) is held to the plain
 version and timed beside its bound (``path_rows``), and its row in the
@@ -160,6 +179,21 @@ SOFTMAX_BWD_SHAPES = {"train": (TRAIN_BATCH, 8, 2, TRAIN_SEQ, TRAIN_SEQ),
                       "decode": SOFTMAX_SHAPES["decode"]}
 MOE_ARCH = "moonshot-v1-16b-a3b"
 HYBRID_ARCH, RWKV_ARCH = "hymba-1.5b", "rwkv6-3b"
+WHISPER_ARCH, VLM_ARCH = "whisper-medium", "internvl2-26b"
+# whisper's parity keeps one encoder and one decoder layer, its decode
+# cache in float32.  At the random init its attention is nearly hard
+# (scores of std about 64) over 1500 frames, and two layers each move the
+# logits beyond the parity limit from a softmax inside the kernel's bound:
+# +-1e-7 moved the prefill logits by 0.017 against a limit of 0.0125, and
+# over the decode steps +-1e-6 by 4.35 of 3.46.  At one layer each a bf16
+# cache still does: the cross K/V of 1500 frames rounds one bf16 step
+# apart where the encoder's outputs differ in the last float32 place, and
+# the +-1e-6 control moved the logits by 2.1e-2, the kernels' summation
+# order by 2.0e-2, against 1.2e-2 (scripts/torch_whisper_parity_probe.py
+# on an NVIDIA H100 80GB HBM3 at 700.00 W).
+WHISPER_PARITY_LAYERS, WHISPER_PARITY_CACHE = 1, "float32"
+# the PPA table of each MLP gate
+GATE_TABLES = {"silu": "sigmoid_wide", "gelu": "gelu_inner"}
 # hymba's parity keeps its first two stages (a global and a windowed one)
 # at one layer each.  Deeper, the model moves a logit by more than the
 # parity limit from a softmax move within the kernel's bound: at all five
@@ -174,8 +208,10 @@ FLASH_T, FLASH_CHUNK = 16384, 1024
 FLASH_FUSED_SHAPES = {"flash_chunk": (1, 8, 2, FLASH_T, FLASH_CHUNK),
                       "flash_rescale": (1, 8, 2, FLASH_T)}
 # Row lengths the softmax is held to its plain version at: both layouts of
-# the warp-per-row path and the block-per-row path beyond 2048.
-SOFTMAX_ROW_LENGTHS = (1, 31, 33, 512, 1024, 2048, 4096)
+# the warp-per-row path and the block-per-row path beyond 2048; 1500 is
+# whisper's encoder and cross attention (vec 4 x 16 items a lane aligned,
+# 64 scalar items not: the forward's register limit).
+SOFTMAX_ROW_LENGTHS = (1, 31, 33, 512, 1024, 1500, 2048, 4096)
 INT32_EXTREMES = (-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1)
 
 
@@ -478,8 +514,13 @@ def _check_softmax(torch, gen, dev, softmax_ppa, e2):
         where[3] = False
         cases += [(f"rows of {n}", x, None, None),
                   (f"rows of {n} masked", x, where, (3,))]
-    x = torch.randn(16 * 512 + 1, generator=gen, device=dev)[1:]
-    cases.append(("rows of 512, unaligned", x.view(16, 512), None, None))
+    for n in (512, 1500):
+        x = torch.randn(16 * n + 1, generator=gen, device=dev)[1:]
+        where = torch.rand((16, n), generator=gen, device=dev) < 0.7
+        where[3] = False
+        cases += [(f"rows of {n}, unaligned", x.view(16, n), None, None),
+                  (f"rows of {n}, unaligned, masked", x.view(16, n), where,
+                   (3,))]
     err = 0.0
     for label, x, where, dead in cases:
         got = softmax_ppa.softmax_ppa(x, e2, where)
@@ -496,8 +537,9 @@ def _check_softmax(torch, gen, dev, softmax_ppa, e2):
         f"{SOFTMAX_ATOL} on {len(cases)} cases (decode {SOFTMAX_SHAPES['decode']}"
         f" and prefill {SOFTMAX_SHAPES['prefill']}, with and without the "
         f"attention mask, a column-strided mask, rows of "
-        f"{', '.join(map(str, SOFTMAX_ROW_LENGTHS))} masked and not, an "
-        "unaligned input); all-masked rows exactly 0")
+        f"{', '.join(map(str, SOFTMAX_ROW_LENGTHS))} masked and not, "
+        "unaligned rows of 512 and 1500 masked and not); all-masked rows "
+        "exactly 0")
     return err
 
 
@@ -534,8 +576,8 @@ def int_row(torch, gen, dev, ppa, sig, shape, plain: bool = True):
 def fused_row(torch, fused, tc, x, gate: bool, plain: bool = True):
     """The fused kernel on ``x`` through table ``tc``: held to its plain
     version bit for bit, then timed beside its bound; with ``plain``, also
-    the plain version and, gated, torch's silu (context: not the same
-    function)."""
+    the plain version and, gated, torch's silu or tanh-approximated gelu
+    (context: not the same function)."""
     got = fused.ppa_fused_apply(tc, x, gate)
     if not torch.equal(got, fused.ppa_fused_plain(tc, x, gate)):
         raise AssertionError(f"ppa_fused != plain at {tuple(x.shape)} "
@@ -554,8 +596,11 @@ def fused_row(torch, fused, tc, x, gate: bool, plain: bool = True):
             lambda: fused.ppa_fused_plain(tc, x, gate),
             iters=3 if iters == 10 else 10)
         if gate:
-            row["context_silu_ms"], _ = time_launch(
-                lambda: torch.nn.functional.silu(x), iters=iters)
+            act = (functools.partial(torch.nn.functional.gelu,
+                                     approximate="tanh")
+                   if tc.naf == "gelu_inner" else torch.nn.functional.silu)
+            row["context_gate_ms"], _ = time_launch(lambda: act(x),
+                                                    iters=iters)
     return row
 
 
@@ -834,7 +879,7 @@ def log_rows(tag, shapes):
     """One line for each row of {kernel: {label: row}}."""
     for name, by_label in shapes.items():
         for label, t in by_label.items():
-            ctx = t.get("context_silu_ms", t.get(
+            ctx = t.get("context_gate_ms", t.get(
                 "context_masked_softmax_ms",
                 t.get("context_softmax_backward_ms")))
             log(f"[{tag}] {name} {label} {t['shape']}"
@@ -855,14 +900,20 @@ def log_rows(tag, shapes):
 
 
 def _cut(cfg, layers: int):
+    """Every stage, and the encoder, cut to ``layers`` layers."""
     return cfg.replace(stages=tuple(
-        dataclasses.replace(st, n_layers=layers) for st in cfg.stages))
+        dataclasses.replace(st, n_layers=layers) for st in cfg.stages),
+        enc_layers=min(cfg.enc_layers, layers))
 
 
 def _serve(torch, dev, cfg, n_requests, max_new, lens):
-    """Serve ``n_requests``; returns (engine, requests, step times)."""
+    """Serve ``n_requests``, each with the extras the launcher draws
+    (``request_extras``: frame or patch embeddings from the seeded
+    generator, before each prompt); returns (engine, requests, step
+    times)."""
     import numpy as np
     from repro_torch.kernels import reset_counts
+    from repro_torch.launch.serve import request_extras
     from repro_torch.models import init_params, param_specs
     from repro_torch.serve import Request, ServeEngine
 
@@ -873,9 +924,12 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens):
     del params
     eng.warmup(sorted(set(lens)))
     rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, lens[i]
-                                               ).astype(np.int32),
-                    max_new_tokens=max_new) for i in range(n_requests)]
+    reqs = []
+    for i in range(n_requests):
+        extra = request_extras(cfg, rng) or None
+        reqs.append(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab, lens[i]).astype(np.int32),
+            max_new_tokens=max_new, extra=extra))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -955,8 +1009,9 @@ def decode_launches(cfg):
     (E, C, f) of SERVE_SLOTS tokens and its shared experts' gate; on
     ``hyb`` also the SSM's silu (conv output and z), softplus and float32
     decays (B, 1, di, N); on ``rwkv`` the tanh of the decay LoRA, the two
-    chained float32 exponentials, silu(g) and the channel mix's
-    sigmoid."""
+    chained float32 exponentials, silu(g) and the channel mix's sigmoid;
+    on ``xdec`` the softmax over the encoder's frames too, and the plain
+    MLP's gelu."""
     from repro_torch.models import moe
     from repro_torch.models.transformer import _moe_cfg, ring_len
     b, bf, f32 = SERVE_SLOTS, "bfloat16", "float32"
@@ -972,6 +1027,10 @@ def decode_launches(cfg):
             continue
         softmax[(b, cfg.n_kv, cfg.n_q // cfg.n_kv, 1,
                  ring_len(st, SERVE_CACHE_LEN))] += n
+        if st.kind == "xdec":
+            softmax[(b, cfg.n_kv, cfg.n_q // cfg.n_kv, 1, cfg.enc_seq)] += n
+            fused[((b, 1, cfg.d_ff), bf, "gelu_inner", True)] += n
+            continue
         if st.kind == "hyb":
             di = cfg.ssm_inner
             fused[((b, 1, di), bf, "sigmoid_wide", True)] += 2 * n
@@ -985,7 +1044,7 @@ def decode_launches(cfg):
                 fused[((b, 1, mcfg.n_shared * mcfg.d_ff), bf,
                        "sigmoid_wide", True)] += n
         else:
-            fused[((b, 1, cfg.d_ff), bf, "sigmoid_wide", True)] += n
+            fused[((b, 1, cfg.d_ff), bf, GATE_TABLES[cfg.gate], True)] += n
     return {"ppa_fused": dict(fused), "softmax_ppa": dict(softmax)}
 
 
@@ -1022,8 +1081,12 @@ def phase_serve_full(torch, dev, card, arch, tag):
     stages = [(st.kind, st.n_layers) + ((f"window {st.window}",)
                                         if st.window else ())
               + (("moe",) if st.moe else ()) for st in cfg.stages]
-    log(f"[{tag}] {arch} {cfg.n_layers}L {stages} d_model {cfg.d_model} "
-        f"bf16 act_impl=ppa act_backend={eng.cfg.act_backend}: "
+    front = ((f", encoder {cfg.enc_layers}L on {cfg.enc_seq} frames"
+              if cfg.enc_layers else "")
+             + (f", {cfg.vision_tokens} vision tokens"
+                if cfg.vision_tokens else ""))
+    log(f"[{tag}] {arch} {cfg.n_layers}L {stages}{front} d_model "
+        f"{cfg.d_model} bf16 act_impl=ppa act_backend={eng.cfg.act_backend}: "
         f"{len(reqs)} requests, {tokens} tokens in {wall:.3f}s = "
         f"{tokens / wall:.1f} tok/s over {n_steps} engine steps; decode "
         f"{dec_ms:.2f} ms/step (median; each "
@@ -1112,22 +1175,25 @@ PARITY_CONTROLS = {"+-1e-6": 1e-6, "+-1e-5": 1e-5, "+-1e-4": 1e-4,
                    "bf16": None}
 
 
-def _parity_run(torch, params, cfg, prompt, acts, silu_tc):
-    """Prefill + 8 greedy decode steps; returns (tokens, logits, the silu
-    gate's quantized inputs and outputs per call, the routed expert ids of
-    every MoE layer and call).  A quantized input is the table grid point
-    the float path evaluates, floor(|x| 2^w_in + 0.5), with every input at
-    or beyond the interval's end counted as hi."""
+def _parity_run(torch, params, cfg, batch, acts, gate, gate_tc,
+                cache_dtype):
+    """Prefill + 8 greedy decode steps of ``batch`` (the prompts of 64
+    tokens and their extras); returns (tokens, logits, the MLP gate's
+    (``gate``: "silu" or "gelu", of table ``gate_tc``) quantized inputs and
+    outputs per call, the routed expert ids of every MoE layer and call).
+    A quantized input is the table grid point the float path evaluates,
+    floor(|x| 2^w_in + 0.5), with every input at or beyond the interval's
+    end counted as hi."""
     import dataclasses as dc
     from repro_torch.models import decode_step, moe, prefill
 
     qs, outs, routes = [], [], []
-    silu, route = acts.silu, moe._route
+    act, route = getattr(acts, gate), moe._route
 
     def recorded(x):
-        q = torch.floor(x.float().abs() * float(1 << silu_tc.w_in) + 0.5)
-        qs.append(torch.clamp(q, max=silu_tc.hi).to(torch.int32))
-        outs.append(silu(x))
+        q = torch.floor(x.float().abs() * float(1 << gate_tc.w_in) + 0.5)
+        qs.append(torch.clamp(q, max=gate_tc.hi).to(torch.int32))
+        outs.append(act(x))
         return outs[-1]
 
     def recorded_route(x2, router, mcfg):
@@ -1135,13 +1201,17 @@ def _parity_run(torch, params, cfg, prompt, acts, silu_tc):
         routes.append(out[0].clone())
         return out
 
-    acts = dc.replace(acts, silu=recorded)
+    acts = dc.replace(acts, **{gate: recorded})
+    prompt = batch["tokens"]
     dev = prompt.device
     moe._route = recorded_route
     try:
-        logits, cache = prefill(params, cfg, {"tokens": prompt}, 128, acts)
+        logits, cache = prefill(params, cfg, batch,
+                                128 + cfg.vision_tokens, acts,
+                                cache_dtype=cache_dtype)
         toks, all_logits = [], [logits]
-        pos = torch.full((4,), 64, dtype=torch.int32, device=dev)
+        pos = torch.full((4,), prompt.shape[1] + cfg.vision_tokens,
+                         dtype=torch.int32, device=dev)
         tok = torch.argmax(logits, -1)
         for _ in range(8):
             toks.append(tok)
@@ -1173,15 +1243,17 @@ def _moved_softmax(torch, dev, softmax, d, seed: int = 2):
 
 
 def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
-                 tag="parity", stages=None):
+                 tag="parity", stages=None, cache_dtype="bfloat16"):
     """The three arms and the controls on ``arch`` at full width, each
     stage cut to ``per_stage`` layers and, with ``stages``, only the first
-    ``stages`` stages kept, float32.  An attention-free model (rwkv) runs
-    no softmax, and the fused kernel is exact: there the arms must be
-    equal bit for bit, and the softmax controls do not apply."""
+    ``stages`` stages kept, float32, the decode cache in ``cache_dtype``.
+    An attention-free model (rwkv) runs no softmax, and the fused kernel is
+    exact: there the arms must be equal bit for bit, and the softmax
+    controls do not apply."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import pack_table
+    from repro_torch.launch.serve import request_extras
     from repro_torch.models import (init_params, make_acts, param_specs,
                                     prepare_params)
     from repro_torch.tables import load_table
@@ -1193,21 +1265,31 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
     params = prepare_params(
         init_params(param_specs(cfg), 0, device=dev), cfg)
     rng = np.random.default_rng(1)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64)),
-                             dtype=torch.int32, device=dev)
-    silu_tc = pack_table(load_table("sigmoid_wide", 16), dev)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64)),
+                                       dtype=torch.int32, device=dev)}
+    extras = [request_extras(cfg, rng) for _ in range(4)]
+    for k in extras[0]:
+        batch[k] = torch.as_tensor(np.stack([e[k] for e in extras]),
+                                   device=dev)
+    # the MLP's gate: gelu in whisper's encoder and decoder
+    gate = "gelu" if any(st.kind in ("enc", "xdec")
+                         for st in cfg.stages) else cfg.gate
+    gate_tc = pack_table(load_table(GATE_TABLES[gate], 16), dev)
     moved = functools.partial(_moved_softmax, torch, dev)
 
     import dataclasses as dc
     with torch.inference_mode():
-        runs = {name: _parity_run(torch, params, cfg, prompt,
-                                  make_acts("ppa", name, dev), silu_tc)
+        cache_dt = getattr(torch, cache_dtype)
+        runs = {name: _parity_run(torch, params, cfg, batch,
+                                  make_acts("ppa", name, dev), gate, gate_tc,
+                                  cache_dt)
                 for name in PARITY_ARMS}
         ref_acts = make_acts("ppa", "ref", dev)
         attn = any(st.kind != "rwkv" for st in cfg.stages)
         controls = {
-            name: _parity_run(torch, params, cfg, prompt, dc.replace(
-                ref_acts, softmax=moved(ref_acts.softmax, d)), silu_tc)[1]
+            name: _parity_run(torch, params, cfg, batch, dc.replace(
+                ref_acts, softmax=moved(ref_acts.softmax, d)), gate,
+                gate_tc, cache_dt)[1]
             for name, d in PARITY_CONTROLS.items() if attn}
     toks = {n: r[0] for n, r in runs.items()}
     scale = float(runs["ref"][1].abs().max())
@@ -1225,13 +1307,13 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
         per_call = [int(f.sum()) for f in flips]
         report[f"{a}|{b}"] = dict(
             gap=float((la - lb).abs().max()), flips=n_flips,
-            flips_per_call=per_call, silu_gap_at_flips=at_flips,
-            silu_gap_elsewhere=elsewhere,
+            flips_per_call=per_call, gate_gap_at_flips=at_flips,
+            gate_gap_elsewhere=elsewhere,
             tokens_equal=bool(torch.equal(toks[a], toks[b])))
         log(f"[{tag}] {a} vs {b}: max |logit gap| "
             f"{report[f'{a}|{b}']['gap']:.3e} (logits up to {scale:.3e}); "
-            f"{n_flips} quantized silu inputs differ (per call, prefill "
-            f"then decode, layer by layer: {per_call}); silu output gap "
+            f"{n_flips} quantized {gate} inputs differ (per call, prefill "
+            f"then decode, layer by layer: {per_call}); {gate} output gap "
             f"{at_flips:.3e} at them, {elsewhere:.3e} elsewhere")
     for pair, r in report.items():
         if not r["tokens_equal"]:
@@ -1296,7 +1378,11 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
                 "of the plain one")
     del runs, controls, params
     _free(torch)
-    log(f"[{tag}] {arch} {cfg.n_layers}L float32: prefill + 8 greedy decode "
+    log(f"[{tag}] {arch} {cfg.n_layers}L"
+        + (f" + {cfg.enc_layers}L encoder" if cfg.enc_layers else "")
+        + (f" after {cfg.vision_tokens} vision tokens"
+           if cfg.vision_tokens else "")
+        + f" float32, a {cache_dtype} cache: prefill + 8 greedy decode "
         f"steps, equal tokens in all three arms; cuda_int vs cuda_fused "
         f"logits equal (the fused kernel is exact); ref vs either "
         f"{report['ref|cuda_int']['gap']:.3e} <= {PARITY_LIMIT} x "
@@ -1663,7 +1749,7 @@ def phase_flash(torch, dev):
             torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
             t0 = time.perf_counter()
-            h = forward_hidden(params, cfg, prompt,
+            h = forward_hidden(params, cfg, {"tokens": prompt},
                                make_acts("ppa", name, dev))
             logits = lm_head_logits(h[:, -1], params["lm_head"])
             torch.cuda.synchronize()
@@ -1757,6 +1843,16 @@ def main() -> int:
                                   torch, dev, card, RWKV_ARCH, "serve_rwkv")
         run("parity_rwkv", phase_parity, torch, dev, RWKV_ARCH, 2,
             "parity_rwkv")
+        paths["serve_whisper"] = run("serve_whisper", phase_serve_full,
+                                     torch, dev, card, WHISPER_ARCH,
+                                     "serve_whisper")
+        run("parity_whisper", phase_parity, torch, dev, WHISPER_ARCH,
+            WHISPER_PARITY_LAYERS, "parity_whisper", None,
+            WHISPER_PARITY_CACHE)
+        paths["serve_vlm"] = run("serve_vlm", phase_serve_full, torch, dev,
+                                 card, VLM_ARCH, "serve_vlm")
+        run("parity_vlm", phase_parity, torch, dev, VLM_ARCH, 2,
+            "parity_vlm")
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")

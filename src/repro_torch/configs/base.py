@@ -34,11 +34,13 @@ SHAPES: Dict[str, ShapeProfile] = {
     "long_500k": ShapeProfile("long_500k", "decode", 524288, 1),
 }
 
-#: architectures whose every stage the port runs: the ``dec`` family and
-#: the recurrent kinds (``hyb``, ``rwkv``)
+#: every architecture of the reference: the ``dec`` family, the recurrent
+#: kinds (``hyb``, ``rwkv``), the encoder-decoder (whisper) and the vision
+#: prefix (internvl)
 ARCH_IDS = (
     "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "qwen3-14b", "internlm2-1.8b",
     "mistral-nemo-12b", "qwen2-7b", "hymba-1.5b", "rwkv6-3b",
+    "whisper-medium", "internvl2-26b",
 )
 
 _SUBQUADRATIC = {"hymba-1.5b", "rwkv6-3b"}

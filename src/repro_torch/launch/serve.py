@@ -5,7 +5,11 @@ on the card.
       --requests 8 --max-new 16 --act-impl ppa
 
 ``--layers`` cuts the depth; the width stays the published one.  Weights
-are random (seed 0), in the config's compute dtype.
+are random (seed 0), in the config's compute dtype.  whisper's requests
+carry frame embeddings ``enc_feats`` ~ N(0, 0.1) of (enc_seq, d_model),
+internvl's patch embeddings ``vision_embeds`` ~ N(0, 0.02) of
+(vision_tokens, d_model), drawn before each prompt from the same seeded
+generator, as the reference's launcher draws them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,20 @@ from ..kernels import available_backends
 from ..models import init_params, param_specs
 from ..models.transformer import dtype_of
 from ..serve import Request, ServeEngine
+
+
+def request_extras(cfg, rng: np.random.Generator) -> dict:
+    """One request's stub frontend outputs, float32, from ``rng``: the
+    encoder's frame embeddings and the vision prefix's patch embeddings, as
+    the config has them (empty for a text-only model)."""
+    extra = {}
+    if cfg.enc_layers:
+        extra["enc_feats"] = rng.normal(
+            0, 0.1, (cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.vision_tokens:
+        extra["vision_embeds"] = rng.normal(
+            0, 0.02, (cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    return extra
 
 
 def main(argv=None):
@@ -64,12 +82,15 @@ def main(argv=None):
     eng.warmup([args.prompt_len])
 
     rng = np.random.default_rng(0)
-    reqs = [Request(rid=rid,
-                    prompt=rng.integers(0, cfg.vocab, args.prompt_len
-                                        ).astype(np.int32),
-                    max_new_tokens=args.max_new,
-                    temperature=args.temperature)
-            for rid in range(args.requests)]
+    reqs = []
+    for rid in range(args.requests):
+        extra = request_extras(cfg, rng)
+        reqs.append(Request(
+            rid=rid,
+            prompt=rng.integers(0, cfg.vocab, args.prompt_len
+                                ).astype(np.int32),
+            max_new_tokens=args.max_new, temperature=args.temperature,
+            extra=extra or None))
     for r in reqs:
         eng.submit(r)
     t0 = time.perf_counter()

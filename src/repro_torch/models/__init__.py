@@ -1,6 +1,7 @@
-"""repro_torch.models — the decoder the served and trained models are
-built from (``dec`` stages, dense or MoE; ``hyb`` attention + SSM stages;
-``rwkv`` stages), with their activations through an ActBundle."""
+"""repro_torch.models — the models served and trained (``dec`` stages,
+dense or MoE; ``hyb`` attention + SSM stages; ``rwkv`` stages; whisper's
+``enc`` encoder and ``xdec`` cross decoder; internvl's vision prefix),
+with their activations through an ActBundle."""
 
 from .activations import ActBundle, make_acts, ppa_table_jobs
 from .common import P, init_params, params_from_jax

@@ -11,8 +11,10 @@ over KV chunks, a Python loop here; its exponentials go through
 table).  Decode keeps a ring-buffer KV cache: slots are addressed
 ``pos % len`` and each slot remembers its absolute position, so a windowed
 stage keeps a ring of its window.  Unlike the reference, decode writes the
-new K/V into the cache in place.  Cross attention comes with the
-encoder-decoder port.
+new K/V into the cache in place.  Cross attention (``x_kv``: whisper's
+decoder on its encoder's output) has no rope on either side and no mask;
+prefill caches the encoder's K/V (``cross_kv``'s), which
+``cross_attention_cached`` reads at each decode step.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from .activations import ActBundle
 from .common import P
 from .layers import rmsnorm, rope
 
-__all__ = ["AttnCfg", "attn_params", "attention", "decode_attention",
-           "init_kv_cache"]
+__all__ = ["AttnCfg", "attn_params", "attention", "cross_attention_cached",
+           "cross_kv", "decode_attention", "init_kv_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,22 +77,33 @@ def attn_params(cfg: AttnCfg, layers: Optional[int] = None) -> dict:
     return out
 
 
-def _project_qkv(params: dict, cfg: AttnCfg, x: torch.Tensor,
-                 pos: torch.Tensor):
-    """Projections, then the bias, the qk rmsnorm and RoPE."""
+def _project_q(params: dict, cfg: AttnCfg, x: torch.Tensor,
+               pos: Optional[torch.Tensor]) -> torch.Tensor:
+    """The query projection, then the bias, the qk rmsnorm and RoPE (none
+    where ``pos`` is None: cross attention)."""
     q = torch.einsum("btd,dhe->bthe", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+    if pos is not None:
+        q = rope(q, pos, theta=cfg.rope_theta)
+    return q
+
+
+def _project_kv(params: dict, cfg: AttnCfg, x: torch.Tensor,
+                pos: Optional[torch.Tensor]):
+    """The key and value projections, as :func:`_project_q`."""
     k = torch.einsum("bsd,dhe->bshe", x, params["wk"])
     v = torch.einsum("bsd,dhe->bshe", x, params["wv"])
     if cfg.qkv_bias:
-        q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
     if cfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
-    q = rope(q, pos, theta=cfg.rope_theta)
-    k = rope(k, pos, theta=cfg.rope_theta)
-    return q, k, v
+    if pos is not None:
+        k = rope(k, pos, theta=cfg.rope_theta)
+    return k, v
 
 
 def _mask(q_pos, k_pos, cfg: AttnCfg, window: Optional[int]
@@ -170,24 +183,36 @@ def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnCfg, window,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, dh).to(q.dtype)
 
 
+def _arange(b: int, t: int, device) -> torch.Tensor:
+    return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
+
+
 def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, acts: ActBundle,
-              *, positions: Optional[torch.Tensor] = None,
+              *, x_kv: Optional[torch.Tensor] = None,
+              positions: Optional[torch.Tensor] = None,
               window: Optional[int] = None, impl: str = "dense",
               return_kv: bool = False):
-    """Full-sequence self-attention (training and prefill), ``impl``
-    "dense" or "flash"; ``window`` overrides ``cfg.window``.  With
-    ``return_kv`` also returns the post-rope K and V for the decode
-    cache."""
+    """Full-sequence attention (training and prefill), ``impl`` "dense" or
+    "flash"; ``window`` overrides ``cfg.window``.  Self-attention on ``x``,
+    or cross attention from ``x`` to ``x_kv`` (its positions ``arange(S)``,
+    no rope on either side).  With ``return_kv`` also returns the
+    (post-rope) K and V: the decode cache's entries, or ``cross_kv``'s."""
     b, t, _ = x.shape
     if positions is None:
-        positions = torch.arange(t, dtype=torch.int32,
-                                 device=x.device).expand(b, t)
-    q, k, v = _project_qkv(params, cfg, x, positions)
+        positions = _arange(b, t, x.device)
+    if x_kv is None:
+        q = _project_q(params, cfg, x, positions)
+        k, v = _project_kv(params, cfg, x, positions)
+        kv_positions = positions
+    else:
+        q = _project_q(params, cfg, x, None)
+        k, v = _project_kv(params, cfg, x_kv, None)
+        kv_positions = _arange(b, x_kv.shape[1], x.device)
     win = window if window is not None else cfg.window
     if impl == "flash":
-        out = _flash_attn(q, k, v, positions, positions, cfg, win, acts)
+        out = _flash_attn(q, k, v, positions, kv_positions, cfg, win, acts)
     elif impl == "dense":
-        out = _dense_attn(q, k, v, _mask(positions, positions, cfg, win),
+        out = _dense_attn(q, k, v, _mask(positions, kv_positions, cfg, win),
                           cfg.scale, acts)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -219,7 +244,8 @@ def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
     ``window`` overrides ``cfg.window``."""
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
-    q, k_new, v_new = _project_qkv(params, cfg, x, pos[:, None])
+    q = _project_q(params, cfg, x, pos[:, None])
+    k_new, v_new = _project_kv(params, cfg, x, pos[:, None])
     slot = (pos % cache_len).long()
     bidx = torch.arange(b, device=x.device)
     cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
@@ -230,3 +256,29 @@ def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
     out = _dense_attn(q, cache["k"], cache["v"], valid, cfg.scale, acts)
     y = _einsum("bthd,hde->bte", out, params["wo"])
     return y, cache
+
+
+def cross_attention_cached(params: dict, cfg: AttnCfg, x: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           acts: ActBundle, *,
+                           enc_valid: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Cross attention of the decoder's ``x`` (B, T, D) against the
+    encoder's K/V (B, S, Hk, Dh) from the cache; every encoder position
+    valid unless ``enc_valid`` (B, S) bool says otherwise."""
+    b, t, _ = x.shape
+    s = k.shape[1]
+    q = _project_q(params, cfg, x, None)
+    if enc_valid is None:
+        valid = torch.ones((b, t, s), dtype=torch.bool, device=x.device)
+    else:
+        valid = enc_valid[:, None, :].expand(b, t, s)
+    out = _dense_attn(q, k, v, valid, cfg.scale, acts)
+    return _einsum("bthd,hde->bte", out, params["wo"])
+
+
+def cross_kv(params: dict, cfg: AttnCfg, enc: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross attention's K/V of the encoder output (B, S, D), once per
+    request: what ``attention(x_kv=enc, return_kv=True)`` returns."""
+    return _project_kv(params, cfg, enc, None)

@@ -1,5 +1,6 @@
-"""Shared model building blocks: RMSNorm, rotary embeddings, token
-embedding, the LM head and the chunked cross-entropy loss."""
+"""Shared model building blocks: RMSNorm and LayerNorm, rotary
+embeddings, token embedding, the LM head and the chunked cross-entropy
+loss."""
 
 from __future__ import annotations
 
@@ -11,16 +12,28 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import P
 
-__all__ = ["rmsnorm_params", "rmsnorm", "rope", "rope_freqs",
+__all__ = ["rmsnorm_params", "rmsnorm", "layernorm_params", "layernorm",
+           "mean_last", "rope", "rope_freqs",
            "embed_lookup", "lm_head_logits", "cross_entropy_chunked"]
 
 
-def rmsnorm_params(dim: int, layers: Optional[int] = None) -> dict:
+def _norm_spec(dim: int, layers: Optional[int], with_bias: bool) -> dict:
     if layers is None:
         shape, axes = (dim,), ("embed",)
     else:
         shape, axes = (layers, dim), ("layers", "embed")
-    return {"scale": P(shape, axes, init="ones")}
+    out = {"scale": P(shape, axes, init="ones")}
+    if with_bias:
+        out["bias"] = P(shape, axes, init="zeros")
+    return out
+
+
+def rmsnorm_params(dim: int, layers: Optional[int] = None) -> dict:
+    return _norm_spec(dim, layers, with_bias=False)
+
+
+def layernorm_params(dim: int, layers: Optional[int] = None) -> dict:
+    return _norm_spec(dim, layers, with_bias=True)
 
 
 def rmsnorm(x: torch.Tensor, params: dict, eps: float = 1e-6
@@ -30,6 +43,29 @@ def rmsnorm(x: torch.Tensor, params: dict, eps: float = 1e-6
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].to(torch.float32)).to(dt)
+
+
+def mean_last(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the last axis, kept, as ``jnp.mean`` takes it: the sum
+    in float32 (a 16-bit input is widened), divided by the count, then
+    rounded to the input's dtype."""
+    n = x.shape[-1]
+    return (x.to(torch.float32).sum(dim=-1, keepdim=True) / n).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, params: dict, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """LayerNorm in float32 with ``jnp.var``'s formula, the mean of the
+    centred squares (not Welford's), and an optional bias."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = mean_last(xf)
+    var = mean_last(torch.square(xf - mu))
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].to(torch.float32)
+    if "bias" in params:
+        y = y + params["bias"].to(torch.float32)
+    return y.to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Gated (SwiGLU) MLP block."""
+"""Gated (SwiGLU-family) and plain MLP blocks."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import torch
 from .activations import ActBundle
 from .common import P
 
-__all__ = ["gated_mlp_params", "gated_mlp"]
+__all__ = ["gated_mlp_params", "gated_mlp", "mlp_params", "mlp"]
 
 
 def _lp(layers, shape, axes, **kw):
@@ -35,3 +35,29 @@ def gated_mlp(params: dict, x: torch.Tensor, acts: ActBundle,
     u = x @ params["w_up"]
     h = acts.gate(gate)(g) * u
     return h @ params["w_down"]
+
+
+def mlp_params(d_model: int, d_ff: int, layers: Optional[int] = None,
+               bias: bool = False) -> dict:
+    out = {
+        "w_up": _lp(layers, (d_model, d_ff), ("embed", "mlp")),
+        "w_down": _lp(layers, (d_ff, d_model), ("mlp", "embed")),
+    }
+    if bias:
+        out["b_up"] = _lp(layers, (d_ff,), ("mlp",), init="zeros")
+        out["b_down"] = _lp(layers, (d_model,), ("embed",), init="zeros")
+    return out
+
+
+def mlp(params: dict, x: torch.Tensor, acts: ActBundle,
+        gate: str = "gelu") -> torch.Tensor:
+    """Plain 2-layer MLP (whisper's): down(act(x @ w_up + b_up)) + b_down.
+    With a PPA bundle the gelu is the gated ``gelu_inner`` table (the fused
+    kernel on the card)."""
+    h = x @ params["w_up"]
+    if "b_up" in params:
+        h = h + params["b_up"]
+    y = acts.gate(gate)(h) @ params["w_down"]
+    if "b_down" in params:
+        y = y + params["b_down"]
+    return y

@@ -1,32 +1,43 @@
 """Model assembly: parameter specs, prefill, decode and the training loss
 for ``dec`` stages (dense or MoE decoder blocks), ``hyb`` stages (hymba:
-attention and a selective SSM in parallel, then a gated MLP) and ``rwkv``
-stages (RWKV6 time-mix and channel-mix, attention-free).
+attention and a selective SSM in parallel, then a gated MLP), ``rwkv``
+stages (RWKV6 time-mix and channel-mix, attention-free) and the
+encoder-decoder kinds (whisper): ``enc`` (bidirectional attention and a
+plain MLP, the encoder's stack) and ``xdec`` (self-attention, cross
+attention to the encoder's output, a plain MLP).
 
-Counterpart of ``repro/models/transformer.py`` for those kinds.  A ``dec``
-block is self-attention (QKV bias, qk-norm, a sliding window and dense or
-flash attention as the config says) plus a gated MLP, or an MoE on a
-``moe`` stage; a ``hyb`` block adds half the attention and half the SSM
-mixer to the residual.  The reference scans a stacked layer axis under
-``jax.lax.scan``; here :func:`prepare_params` casts the parameters to
-``compute_dtype`` once and splits the stack into per-layer views, which a
-Python loop walks.  The decode cache keeps the reference's stacked layout
-per stage: ``kv`` {"k", "v": (L, B, S, Hk, D), "pos"}, S the stage's ring
-(its window when that is shorter than the cache), on ``dec`` and ``hyb``
-stages; ``ssm`` {"conv": (L, B, K-1, di), "h": (L, B, di, N) float32} on
-``hyb``; ``rwkv`` {"tm_last", "cm_last": (L, B, 1, D), "s": (L, B, H, D,
-D) float32} on ``rwkv``.  Decode updates it in place.
+Counterpart of ``repro/models/transformer.py``.  A ``dec`` block is
+self-attention (QKV bias, qk-norm, a sliding window and dense or flash
+attention as the config says) plus a gated MLP, or an MoE on a ``moe``
+stage; a ``hyb`` block adds half the attention and half the SSM mixer to
+the residual.  The norm is RMSNorm or LayerNorm as ``cfg.norm`` says.  The
+modality frontends are stubs, as in the reference: whisper's encoder takes
+precomputed frame embeddings (``batch["enc_feats"]``, standardised per
+frame), internvl's decoder precomputed patch embeddings
+(``batch["vision_embeds"]``) put before the token embeddings.
+
+The reference scans a stacked layer axis under ``jax.lax.scan``; here
+:func:`prepare_params` casts the parameters to ``compute_dtype`` once and
+splits the stack into per-layer views, which a Python loop walks.  The
+decode cache keeps the reference's stacked layout per stage: ``kv`` {"k",
+"v": (L, B, S, Hk, D), "pos"}, S the stage's ring (its window when that
+is shorter than the cache), on ``dec`` and ``hyb`` stages; ``ssm``
+{"conv": (L, B, K-1, di), "h": (L, B, di, N) float32} on ``hyb``;
+``rwkv`` {"tm_last", "cm_last": (L, B, 1, D), "s": (L, B, H, D, D)
+float32} on ``rwkv``; ``xk``, ``xv`` (L, B, enc_seq, Hk, D), the
+encoder's cross-attention K/V, on ``xdec``.  Decode updates it in place.
 
 :func:`loss_fn` casts the (float32 master) parameters inside the autograd
 graph, as the reference's ``_cast_params``, and splits each stacked leaf
 with ``unbind``, whose backward stacks the layers' gradients once: the
 gradients land on the stacked float32 leaves.  Its aux is the sum over
 layers of the MoE load-balance loss.  ``cfg.remat`` recomputes each layer
-in the backward: ``"full"`` all of it, ``"dots"`` all but the outputs of
-its matrix products without batch dimensions (the reference's
-``checkpoint_dots_with_no_batch_dims``: the experts' batched products are
-recomputed), ``"none"`` nothing.  The recurrent mixers also recompute
-each of their chunks, as the reference's ``jax.checkpoint`` does.
+(the encoder's too) in the backward: ``"full"`` all of it, ``"dots"`` all
+but the outputs of its matrix products without batch dimensions (the
+reference's ``checkpoint_dots_with_no_batch_dims``: the experts' batched
+products are recomputed), ``"none"`` nothing.  The recurrent mixers also
+recompute each of their chunks, as the reference's ``jax.checkpoint``
+does.
 """
 
 from __future__ import annotations
@@ -41,13 +52,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import resolve_device
 from ..tree import map_trees
 from .activations import ActBundle
-from .attention import (AttnCfg, attn_params, attention, decode_attention,
+from .attention import (AttnCfg, attn_params, attention,
+                        cross_attention_cached, decode_attention,
                         init_kv_cache)
 from .common import P, map_tree
 from .config import ModelCfg, StageCfg
-from .layers import (cross_entropy_chunked, embed_lookup, lm_head_logits,
-                     rmsnorm, rmsnorm_params)
-from .mlp import gated_mlp, gated_mlp_params
+from .layers import (cross_entropy_chunked, embed_lookup, layernorm,
+                     layernorm_params, lm_head_logits, mean_last, rmsnorm,
+                     rmsnorm_params)
+from .mlp import gated_mlp, gated_mlp_params, mlp, mlp_params
 from .moe import MoECfg, moe_block, moe_params
 from .rwkv import (RWKVCfg, init_rwkv_state, rwkv_channel_mix,
                    rwkv_channel_params, rwkv_time_mix, rwkv_time_params,
@@ -66,33 +79,53 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-#: the stage kinds the port runs
-PORTED_KINDS = ("dec", "hyb", "rwkv")
+#: the stage kinds the port runs: every kind of the reference
+PORTED_KINDS = ("dec", "hyb", "rwkv", "enc", "xdec")
+#: the norms
+NORMS = ("rmsnorm", "layernorm")
 #: the kinds whose decode cache carries state in prompt order (an SSM or
 #: RWKV recurrence), which right-padding would run on past the prompt
 RECURRENT_KINDS = ("hyb", "rwkv")
+#: the kinds with a decode step (an ``enc`` stage runs in the encoder or
+#: in a full-sequence forward only, as in the reference)
+DECODE_KINDS = ("dec", "hyb", "rwkv", "xdec")
 
 
 def _check_ported(cfg: ModelCfg) -> None:
-    """Refuse what the port does not run yet: the encoder-decoder stages,
-    the vision prefix and layernorm."""
+    """Refuse a stage kind or a norm the reference does not have."""
     for st in cfg.stages:
         if st.kind not in PORTED_KINDS:
             raise NotImplementedError(
-                f"{cfg.arch}: stage kind {st.kind!r} is not ported "
+                f"{cfg.arch}: unknown stage kind {st.kind!r} "
                 f"(ported: {PORTED_KINDS})")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"{cfg.arch}: only rmsnorm is ported")
-    if cfg.vision_tokens or cfg.enc_layers:
-        raise NotImplementedError(f"{cfg.arch}: no vision/encoder port yet")
+    if cfg.norm not in NORMS:
+        raise NotImplementedError(f"{cfg.arch}: unknown norm {cfg.norm!r}")
 
 
-def _attn_cfg(cfg: ModelCfg, stage: StageCfg) -> AttnCfg:
+def _check_decodes(cfg: ModelCfg) -> None:
+    for st in cfg.stages:
+        if st.kind not in DECODE_KINDS:
+            raise NotImplementedError(
+                f"{cfg.arch}: a {st.kind!r} stage has no decode step")
+
+
+def _attn_cfg(cfg: ModelCfg, stage: StageCfg, causal: bool = True
+              ) -> AttnCfg:
     return AttnCfg(
         d_model=cfg.d_model, n_q=cfg.n_q, n_kv=cfg.n_kv,
         head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
-        rope_theta=cfg.rope_theta, window=stage.window,
+        rope_theta=cfg.rope_theta, causal=causal, window=stage.window,
         flash_chunk=cfg.flash_chunk)
+
+
+def _norm_params(cfg: ModelCfg, layers: Optional[int] = None) -> dict:
+    return (rmsnorm_params(cfg.d_model, layers) if cfg.norm == "rmsnorm"
+            else layernorm_params(cfg.d_model, layers))
+
+
+def _norm(cfg: ModelCfg, x: torch.Tensor, params: dict) -> torch.Tensor:
+    return (rmsnorm(x, params) if cfg.norm == "rmsnorm"
+            else layernorm(x, params))
 
 
 def _moe_cfg(cfg: ModelCfg) -> MoECfg:
@@ -127,53 +160,74 @@ def ring_len(st: StageCfg, cache_len: int) -> int:
 def _stage_specs(cfg: ModelCfg, st: StageCfg) -> dict:
     l = st.n_layers
     if st.kind == "rwkv":
-        return {"ln1": rmsnorm_params(cfg.d_model, l),
+        return {"ln1": _norm_params(cfg, l),
                 "tm": rwkv_time_params(_rwkv_cfg(cfg), l),
-                "ln2": rmsnorm_params(cfg.d_model, l),
+                "ln2": _norm_params(cfg, l),
                 "cm": rwkv_channel_params(_rwkv_cfg(cfg), l)}
-    out = {"ln1": rmsnorm_params(cfg.d_model, l),
-           "attn": attn_params(_attn_cfg(cfg, st), l),
-           "ln2": rmsnorm_params(cfg.d_model, l)}
+    out = {"ln1": _norm_params(cfg, l),
+           "attn": attn_params(_attn_cfg(cfg, st, st.kind != "enc"), l),
+           "ln2": _norm_params(cfg, l)}
     if st.kind == "hyb":
         out["ssm"] = ssm_params(_ssm_cfg(cfg), l)
     if st.moe:
         out["moe"] = moe_params(_moe_cfg(cfg), l)
+    elif st.kind in ("enc", "xdec"):
+        out["mlp"] = mlp_params(cfg.d_model, cfg.d_ff, l, bias=True)
     else:
         out["mlp"] = gated_mlp_params(cfg.d_model, cfg.d_ff, l)
+    if st.kind == "xdec":
+        out["lnx"] = _norm_params(cfg, l)
+        out["xattn"] = attn_params(_attn_cfg(cfg, st, False), l)
     return out
+
+
+def _enc_stage(cfg: ModelCfg) -> StageCfg:
+    return StageCfg("enc", cfg.enc_layers)
 
 
 def param_specs(cfg: ModelCfg) -> dict:
     _check_ported(cfg)
     out: Dict[str, Any] = {
         "embed": P((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
-        "ln_f": rmsnorm_params(cfg.d_model),
+        "ln_f": _norm_params(cfg),
         "stages": {_stage_key(i, st): _stage_specs(cfg, st)
                    for i, st in enumerate(cfg.stages)},
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = P((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                            scale=0.02)
+    if cfg.enc_layers:
+        out["encoder"] = {
+            "pos": P((cfg.enc_seq, cfg.d_model), (None, "embed"), scale=0.02),
+            "stack": _stage_specs(cfg, _enc_stage(cfg)),
+            "ln_f": _norm_params(cfg),
+        }
     return out
 
 
 def prepare_params(params: dict, cfg: ModelCfg, device=None) -> dict:
     """Cast floating parameters to ``compute_dtype`` (once), move them to
-    ``device`` (None: where they are) and split every stage's stacked layer
-    axis into a list of per-layer dicts (views)."""
+    ``device`` (None: where they are) and split every stacked layer axis
+    (each stage's, the encoder's) into a list of per-layer dicts
+    (views)."""
     _check_ported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     cast = map_tree(
         lambda t: t.to(device=device,
                        dtype=dt if t.is_floating_point() else t.dtype),
         params)
-    stages = {}
-    for i, st in enumerate(cfg.stages):
-        key = _stage_key(i, st)
-        stages[key] = [map_tree(lambda t, j=j: t[j], cast["stages"][key])
-                       for j in range(st.n_layers)]
+
+    def split(tree, n):
+        return [map_tree(lambda t, j=j: t[j], tree) for j in range(n)]
+
     out = {k: v for k, v in cast.items() if k != "stages"}
-    out["stages"] = stages
+    out["stages"] = {
+        _stage_key(i, st): split(cast["stages"][_stage_key(i, st)],
+                                 st.n_layers)
+        for i, st in enumerate(cfg.stages)}
+    if cfg.enc_layers:
+        out["encoder"] = dict(cast["encoder"], stack=split(
+            cast["encoder"]["stack"], cfg.enc_layers))
     return out
 
 
@@ -181,38 +235,45 @@ def _head(params: dict) -> torch.Tensor:
     return params.get("lm_head", params["embed"])
 
 
-def forward_hidden(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
+def forward_hidden(params: dict, cfg: ModelCfg, batch: dict,
                    acts: ActBundle) -> torch.Tensor:
-    """Final hidden (B, T, D) of a full sequence (prepared params)."""
-    h, _ = _prefill_hidden(params, cfg, tokens, acts, None, None)
+    """Final hidden (B, T', D) of a full sequence (prepared params):
+    ``batch`` {"tokens" (B, T) int, and "enc_feats" (B, enc_seq, D) with
+    an encoder, "vision_embeds" (B, vision_tokens, D) with a vision
+    prefix}.  T' counts the vision prefix (the caller slices)."""
+    h, _ = _prefill_hidden(params, cfg, batch, acts, None, None)
     return h
 
 
 def _ffn(cfg: ModelCfg, st: StageCfg, p: dict, x: torch.Tensor,
          acts: ActBundle):
-    """The block's second half: (y, MoE aux loss or None)."""
+    """The block's second half: (y, MoE aux loss or None).  The encoder's
+    and the cross decoder's MLP is the plain one with gelu, whatever
+    ``cfg.gate``, as in the reference."""
     if st.moe:
         return moe_block(p["moe"], x, _moe_cfg(cfg), acts)
+    if st.kind in ("enc", "xdec"):
+        return mlp(p["mlp"], x, acts, gate="gelu"), None
     return gated_mlp(p["mlp"], x, acts, gate=cfg.gate), None
 
 
-def _layer(cfg, st, acts, positions, h, p):
+def _layer(cfg, st, acts, positions, h, p, enc_out=None):
     """One block on a full sequence: (h, its decode state unpacked, aux or
     None).  The state is {"kv": (k, v)} and, on a ``hyb`` block, the SSM's
-    final carry; on an ``rwkv`` block {"rwkv": {"tm_last", "cm_last",
-    "s"}}."""
-    hn = rmsnorm(h, p["ln1"])
+    final carry, on an ``xdec`` block the encoder's cross K/V {"xk", "xv"};
+    on an ``rwkv`` block {"rwkv": {"tm_last", "cm_last", "s"}}."""
+    hn = _norm(cfg, h, p["ln1"])
     if st.kind == "rwkv":
         rcfg = _rwkv_cfg(cfg)
         y, (tm_last, s) = rwkv_time_mix(p["tm"], rcfg, hn, acts,
                                         return_state=True)
         h = h + y
-        hn2 = rmsnorm(h, p["ln2"])
+        hn2 = _norm(cfg, h, p["ln2"])
         h = h + rwkv_channel_mix(p["cm"], rcfg, hn2, acts)
         return h, {"rwkv": {"tm_last": tm_last, "cm_last": hn2[:, -1:],
                             "s": s}}, None
-    a, kv = attention(p["attn"], _attn_cfg(cfg, st), hn, acts,
-                      positions=positions, impl=cfg.attn_impl,
+    a, kv = attention(p["attn"], _attn_cfg(cfg, st, st.kind != "enc"), hn,
+                      acts, positions=positions, impl=cfg.attn_impl,
                       return_kv=True)
     state = {"kv": kv}
     if st.kind == "hyb":
@@ -221,8 +282,52 @@ def _layer(cfg, st, acts, positions, h, p):
         h = h + 0.5 * (a + s)
     else:
         h = h + a
-    y, aux = _ffn(cfg, st, p, rmsnorm(h, p["ln2"]), acts)
+    if st.kind == "xdec":
+        c, (state["xk"], state["xv"]) = attention(
+            p["xattn"], _attn_cfg(cfg, st, False),
+            _norm(cfg, h, p["lnx"]), acts, x_kv=enc_out,
+            impl=cfg.attn_impl, return_kv=True)
+        h = h + c
+    y, aux = _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts)
     return h + y, state, aux
+
+
+def _encode(cfg: ModelCfg, enc: dict, layers, enc_feats: torch.Tensor,
+            acts: ActBundle, layer_fn=None) -> torch.Tensor:
+    """The encoder on frame embeddings (B, S, D) in the compute dtype:
+    each frame standardised (the mean, then the mean of the centred
+    squares, as ``jnp.mean`` takes them), the learned positions added,
+    then the ``enc`` layers (``layers``: per-layer params; ``layer_fn``
+    wraps the layer, e.g. for recompute) and the final norm.  The conv
+    frontend is a stub: the features may come at any scale, and the real
+    one emits unit-scale features."""
+    mu = mean_last(enc_feats)
+    var = mean_last(torch.square(enc_feats - mu))
+    h = (enc_feats - mu) * torch.rsqrt(var + 1e-6)
+    h = h + enc["pos"][None, :enc_feats.shape[1]]
+    st = _enc_stage(cfg)
+    fn = functools.partial(_train_layer, cfg, st, acts, None, None)
+    if layer_fn is not None:
+        fn = layer_fn(fn)
+    for p in layers:
+        h, _ = fn(h, p)
+    return _norm(cfg, h, enc["ln_f"])
+
+
+def _embed_inputs(params: dict, cfg: ModelCfg, batch: dict,
+                  acts: ActBundle, layer_fn=None):
+    """(h (B, T', D), the encoder's output or None): the token embeddings
+    after the vision prefix, and the encoder (its stack a list of
+    per-layer params) run on ``enc_feats``."""
+    h = embed_lookup(params["embed"], batch["tokens"])
+    if cfg.vision_tokens:
+        h = torch.cat([batch["vision_embeds"].to(h.dtype), h], dim=1)
+    enc_out = None
+    if cfg.enc_layers:
+        enc = params["encoder"]
+        enc_out = _encode(cfg, enc, enc["stack"],
+                          batch["enc_feats"].to(h.dtype), acts, layer_fn)
+    return h, enc_out
 
 
 def _pack_state(state: dict, positions, eff: int, dtype) -> dict:
@@ -239,6 +344,9 @@ def _pack_state(state: dict, positions, eff: int, dtype) -> dict:
     if "ssm" in state:
         out["ssm"] = {"conv": state["ssm"]["conv"].to(dtype, copy=True),
                       "h": state["ssm"]["h"].clone()}
+    if "xk" in state:
+        out["xk"] = state["xk"].to(dtype, copy=True)
+        out["xv"] = state["xv"].to(dtype, copy=True)
     if "rwkv" in state:
         st = state["rwkv"]
         out["rwkv"] = {"tm_last": st["tm_last"].to(dtype, copy=True),
@@ -247,31 +355,34 @@ def _pack_state(state: dict, positions, eff: int, dtype) -> dict:
     return out
 
 
-def _prefill_hidden(params, cfg, tokens, acts, cache_len, cache_dtype):
-    h = embed_lookup(params["embed"], tokens)
+def _prefill_hidden(params, cfg, batch, acts, cache_len, cache_dtype):
+    h, enc_out = _embed_inputs(params, cfg, batch, acts)
     b, t, _ = h.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=h.device).expand(b, t)
     cache = {}
+    if cache_len is not None:
+        _check_decodes(cfg)
     for i, st in enumerate(cfg.stages):
         key = _stage_key(i, st)
         packed = []
         for p in params["stages"][key]:
-            h, state, _ = _layer(cfg, st, acts, positions, h, p)
+            h, state, _ = _layer(cfg, st, acts, positions, h, p, enc_out)
             if cache_len is not None:
                 packed.append(_pack_state(state, positions,
                                           ring_len(st, cache_len),
                                           cache_dtype))
         if cache_len is not None:
             cache[key] = map_trees(lambda *ls: torch.stack(ls), *packed)
-    return rmsnorm(h, params["ln_f"]), cache
+    return _norm(cfg, h, params["ln_f"]), cache
 
 
 def init_cache(cfg: ModelCfg, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Empty decode cache in the layout the module docstring gives: K/V
-    rings with every position -1, zero recurrent states."""
+    rings with every position -1, zero recurrent states and cross K/V."""
     _check_ported(cfg)
+    _check_decodes(cfg)
     device = resolve_device(device)
     out = {}
     for i, st in enumerate(cfg.stages):
@@ -279,6 +390,11 @@ def init_cache(cfg: ModelCfg, batch: int, cache_len: int,
         if st.kind != "rwkv":
             one["kv"] = init_kv_cache(batch, ring_len(st, cache_len),
                                       _attn_cfg(cfg, st), dtype, device)
+        if st.kind == "xdec":
+            for name in ("xk", "xv"):
+                one[name] = torch.zeros(
+                    (batch, cfg.enc_seq, cfg.n_kv, cfg.head_dim),
+                    dtype=dtype, device=device)
         if st.kind == "hyb":
             one["ssm"] = init_ssm_state(batch, _ssm_cfg(cfg), dtype, device)
         if st.kind == "rwkv":
@@ -314,10 +430,12 @@ def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
             last_idx: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Run the full prompt once (prepared params); return (last-token
-    logits, decode cache).  ``last_idx`` (B,) picks each row's last real
-    position when prompts are right-padded to a shared length."""
-    h, cache = _prefill_hidden(params, cfg, batch["tokens"], acts,
-                               cache_len, cache_dtype)
+    logits, decode cache).  ``batch`` as :func:`forward_hidden` takes it.
+    ``last_idx`` (B,) picks each row's last real position in the whole
+    sequence (the vision prefix included) when prompts are right-padded to
+    a shared length."""
+    h, cache = _prefill_hidden(params, cfg, batch, acts, cache_len,
+                               cache_dtype)
     if last_idx is None:
         last = h[:, -1]
     else:
@@ -328,13 +446,13 @@ def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
 def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h):
     """Layer ``j`` of a stage at one decode step; writes its cache entries
     in place."""
-    hn = rmsnorm(h, p["ln1"])
+    hn = _norm(cfg, h, p["ln1"])
     if st.kind == "rwkv":
         rcfg, c = _rwkv_cfg(cfg), cache["rwkv"]
         y, tm_last, s = time_core(p["tm"], rcfg, hn, c["tm_last"][j],
                                   c["s"][j], acts)
         h = h + y
-        hn2 = rmsnorm(h, p["ln2"])
+        hn2 = _norm(cfg, h, p["ln2"])
         h = h + rwkv_channel_mix(p["cm"], rcfg, hn2, acts,
                                  x_last=c["cm_last"][j])
         for name, new in (("tm_last", tm_last), ("cm_last", hn2), ("s", s)):
@@ -352,7 +470,11 @@ def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h):
         h = h + 0.5 * (a + s)
     else:
         h = h + a
-    return h + _ffn(cfg, st, p, rmsnorm(h, p["ln2"]), acts)[0]
+    if st.kind == "xdec":
+        h = h + cross_attention_cached(
+            p["xattn"], _attn_cfg(cfg, st, False), _norm(cfg, h, p["lnx"]),
+            cache["xk"][j], cache["xv"][j], acts)
+    return h + _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts)[0]
 
 
 def decode_step(params: dict, cfg: ModelCfg, cache: dict,
@@ -365,7 +487,7 @@ def decode_step(params: dict, cfg: ModelCfg, cache: dict,
         key = _stage_key(i, st)
         for j, p in enumerate(params["stages"][key]):
             h = _decode_layer(cfg, st, acts, p, cache[key], j, pos, h)
-    h = rmsnorm(h, params["ln_f"])
+    h = _norm(cfg, h, params["ln_f"])
     return lm_head_logits(h, _head(params))[:, 0], cache
 
 
@@ -395,8 +517,8 @@ def _remat(fn, remat: str):
     raise ValueError(f"unknown remat {remat!r}")
 
 
-def _train_layer(cfg, st, acts, positions, h, p):
-    h, _, aux = _layer(cfg, st, acts, positions, h, p)
+def _train_layer(cfg, st, acts, positions, enc_out, h, p):
+    h, _, aux = _layer(cfg, st, acts, positions, h, p, enc_out)
     return h, aux
 
 
@@ -409,25 +531,30 @@ def _unstack(tree: dict, n: int) -> list:
 def loss_fn(params: dict, cfg: ModelCfg, batch: dict, acts: ActBundle
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"
-    (B, T) int, optional "loss_mask"}) under the raw (float32 master)
+    (B, T) int, optional "loss_mask", and the extras
+    :func:`forward_hidden` takes}) under the raw (float32 master)
     ``params``: (loss, {"nll", "aux", "denom"}), differentiable in the
-    params."""
+    params.  The vision prefix's positions take no loss."""
     _check_ported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     p = map_tree(lambda t: t.to(dt) if t.is_floating_point() else t, params)
-    h = embed_lookup(p["embed"], batch["tokens"])
+    if cfg.enc_layers:
+        p["encoder"]["stack"] = _unstack(p["encoder"]["stack"],
+                                         cfg.enc_layers)
+    remat = functools.partial(_remat, remat=cfg.remat)
+    h, enc_out = _embed_inputs(p, cfg, batch, acts, remat)
     b, t, _ = h.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=h.device).expand(b, t)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, st in enumerate(cfg.stages):
-        layer = _remat(functools.partial(_train_layer, cfg, st, acts,
-                                         positions), cfg.remat)
+        layer = remat(functools.partial(_train_layer, cfg, st, acts,
+                                        positions, enc_out))
         for lp in _unstack(p["stages"][_stage_key(i, st)], st.n_layers):
             h, a = layer(h, lp)
             if a is not None:
                 aux = aux + a
-    h = rmsnorm(h, p["ln_f"])
+    h = _norm(cfg, h, p["ln_f"])[:, cfg.vision_tokens:]
     nll, denom = cross_entropy_chunked(h, _head(p), batch["labels"],
                                        mask=batch.get("loss_mask"),
                                        num_chunks=cfg.ce_chunks)

@@ -18,6 +18,12 @@ sequences free their slot.
   ``rwkv``), whose state a pad would advance, group by exact length
   without padding.  Pads go through an MoE router like real tokens and
   take expert capacity, as in the reference.
+* **Per-request inputs** — a request's ``extra`` ({"enc_feats"} for
+  whisper's encoder, {"vision_embeds"} for internvl's prefix, numpy
+  arrays without the batch axis) joins the group key by its sorted keys,
+  so a group stacks the same extras; a vision prefix shifts each row's
+  last position and the decode positions by ``vision_tokens``, and counts
+  against the ring when the engine pads.
 * **Batched sampling** — one argmax over all greedy rows and one Gumbel-max
   draw over all temperature rows: at most two device-to-host copies per
   step.  Each temperature sample draws one seed from the engine's host
@@ -66,6 +72,7 @@ class Request:
     prompt: np.ndarray                 # (T,) int32
     max_new_tokens: int = 16
     temperature: float = 0.0
+    extra: Optional[dict] = None       # enc_feats / vision_embeds
     deadline_s: Optional[float] = None  # wall budget from submit()
     # filled by the engine:
     output: Optional[List[int]] = None
@@ -173,13 +180,14 @@ class ServeEngine:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
     def _bucket_len(self, prompt_len: int) -> int:
-        """Padded length for a prompt (== prompt_len when padding is
-        unsound for this config or the bucket would overflow a ring: pads
-        must never evict real tokens)."""
+        """Padded token length for a prompt (== prompt_len when padding is
+        unsound for this config or the bucket, after the vision prefix,
+        would overflow a ring: pads must never evict real tokens)."""
         if not self._paddable:
             return prompt_len
         b = _bucket(prompt_len)
-        return prompt_len if b > self._min_eff else b
+        return (prompt_len if self.cfg.vision_tokens + b > self._min_eff
+                else b)
 
     def _draw_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self.rng))
@@ -199,26 +207,31 @@ class ServeEngine:
             for slot, req in pairs:
                 self._admit_group(len(req.prompt), [(slot, req)], seeds)
             return
-        groups: Dict[int, list] = {}
+        groups: Dict[tuple, list] = {}
         for slot, req in pairs:
-            groups.setdefault(self._bucket_len(len(req.prompt)),
-                              []).append((slot, req))
-        for blen, members in groups.items():
+            sig = (self._bucket_len(len(req.prompt)),
+                   tuple(sorted(req.extra)) if req.extra else ())
+            groups.setdefault(sig, []).append((slot, req))
+        for (blen, _), members in groups.items():
             self._admit_group(blen, members, seeds)
 
     def _admit_group(self, blen: int, members: Sequence[Tuple[int, Request]],
                      seeds: Dict[int, int]) -> None:
         """One batched prefill for every (slot, request) in ``members``,
-        right-padded to ``blen`` tokens."""
+        right-padded to ``blen`` tokens, with their extras stacked."""
         g = len(members)
         toks = np.zeros((g, blen), np.int32)
         last = np.zeros((g,), np.int64)
         for j, (_, req) in enumerate(members):
             lp = len(req.prompt)
             toks[j, :lp] = req.prompt
-            last[j] = lp - 1
+            last[j] = self.cfg.vision_tokens + lp - 1
         self.prefill_shapes.add((blen, g))
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        for k in members[0][1].extra or ():
+            batch[k] = torch.as_tensor(
+                np.stack([req.extra[k] for _, req in members]),
+                device=self.device)
         logits, cache1 = prefill(self.params, self.cfg, batch,
                                  self.cache_len, self.acts,
                                  last_idx=torch.as_tensor(
@@ -231,7 +244,7 @@ class ServeEngine:
             self._start_slot(slot, req, int(toks_out[j]))
 
     def _start_slot(self, slot: int, req: Request, tok: int) -> None:
-        self.pos[slot] = len(req.prompt)
+        self.pos[slot] = len(req.prompt) + self.cfg.vision_tokens
         self.cur_tok[slot] = tok
         self.remaining[slot] = req.max_new_tokens - 1
         req.output.append(tok)
@@ -241,9 +254,9 @@ class ServeEngine:
     def _insert_cache(self, slots: Sequence[int], cache1,
                       rows: Sequence[int]) -> None:
         """Scatter prefill cache rows into slot rows, one batched copy per
-        cache leaf (K/V rings, SSM and RWKV states; layout (L, B, ...)), each
-        in its own dtype: a reused slot keeps nothing of its last
-        request."""
+        cache leaf (K/V rings, SSM and RWKV states, cross K/V; layout (L, B,
+        ...)), each in its own dtype: a reused slot keeps nothing of its
+        last request."""
         sl = torch.as_tensor(list(slots), dtype=torch.long,
                              device=self.device)
         rw = torch.as_tensor(list(rows), dtype=torch.long,
@@ -320,19 +333,26 @@ class ServeEngine:
     @torch.inference_mode()
     def warmup(self, prompt_lens: Sequence[int] = (), *, batch: int = 1,
                decode: bool = True) -> int:
-        """Run one prefill per bucketed prompt length and one decode step
-        on scratch state (the engine's cache and queue are untouched), so
-        first-use costs (kernel builds, library handles) are paid here.
-        Returns the number of runs."""
-        n = 0
+        """Run one prefill per bucketed prompt length (zero extras) and one
+        decode step on scratch state (the engine's cache and queue are
+        untouched), so first-use costs (kernel builds, library handles) are
+        paid here.  Returns the number of runs."""
+        cfg, n = self.cfg, 0
         for lp in prompt_lens:
             blen = self._bucket_len(lp)
-            toks = torch.zeros((batch, blen), dtype=torch.int32,
-                               device=self.device)
-            last = torch.full((batch,), min(lp, blen) - 1, dtype=torch.long,
-                              device=self.device)
-            prefill(self.params, self.cfg, {"tokens": toks}, self.cache_len,
-                    self.acts, last_idx=last)
+            feed = {"tokens": torch.zeros((batch, blen), dtype=torch.int32,
+                                          device=self.device)}
+            if cfg.enc_layers:
+                feed["enc_feats"] = torch.zeros(
+                    (batch, cfg.enc_seq, cfg.d_model), device=self.device)
+            if cfg.vision_tokens:
+                feed["vision_embeds"] = torch.zeros(
+                    (batch, cfg.vision_tokens, cfg.d_model),
+                    device=self.device)
+            last = torch.full((batch,), cfg.vision_tokens + min(lp, blen) - 1,
+                              dtype=torch.long, device=self.device)
+            prefill(self.params, cfg, feed, self.cache_len, self.acts,
+                    last_idx=last)
             n += 1
         if decode:
             scratch = init_cache(self.cfg, self.n_slots, self.cache_len,

@@ -1,6 +1,7 @@
 """Each CUDA kernel of the PyTorch port against its plain PyTorch version,
-one train step against the plain versions, and the recurrent smoke
-configs served, on the card (they skip where there is none).  No JAX here, so the file runs
+one train step against the plain versions, and the recurrent,
+encoder-decoder and vision smoke configs served, on the card (they skip
+where there is none).  No JAX here, so the file runs
 on the machine with the card:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -416,3 +417,93 @@ def test_recurrent_smoke_serves_on_card(arch):
     assert sm >= need if arch == "hymba-1.5b" else sm == 0
     assert not any(v.get("plain", 0) for v in c.values())
     assert {n for n, _ in eng.prefill_shapes} == set(lens)
+
+
+#: whisper-medium's rows of 1500 scores: the encoder's (g, 16, 1, 1500,
+#: 1500), all valid; cross attention at decode (4 slots) and at prefill
+WHISPER_SOFTMAX_SHAPES = [(1, 16, 1, 1500, 1500), (4, 16, 1, 1, 1500),
+                          (2, 16, 1, 64, 1500)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WHISPER_SOFTMAX_SHAPES)
+def test_softmax_kernel_at_whisper_rows(shape):
+    """Rows of 1500 scores (6000 bytes, a multiple of 16): the 16-byte
+    layout (vec 4, 16 items a lane) on a contiguous input, the scalar one
+    (vec 1, 64 items) on a view one float off; unmasked, under the
+    all-valid mask cross attention hands it, and under a random mask with
+    an all-masked row."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, generator=gen, device=dev) * 4.0
+    b, t, s = shape[0], shape[-2], shape[-1]
+    ones = torch.ones((b, 1, 1, t, s), dtype=torch.bool, device=dev)
+    rand = torch.rand((b, 1, 1, t, s), generator=gen, device=dev) < 0.7
+    rand[0, 0, 0, 0] = False
+    assert softmax_ppa.route(s, True) == (4, 16)
+    assert softmax_ppa.route(s, False) == (1, 64)
+    for x in (flat[:n].view(shape), flat[1:].view(shape)):
+        for w in (None, ones, rand):
+            got = softmax_ppa.softmax_ppa(x, tc, w)
+            want = softmax_ppa.softmax_ppa_plain(x, tc, w)
+            assert float((got - want).abs().max()) <= SOFTMAX_ATOL
+        assert not got[0, :, :, 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_kernel_gelu_at_whisper_encoder_shape(dtype):
+    """gelu_inner-16 gated, whisper's encoder MLP (1, 1500, 4096): bit for
+    bit the plain version."""
+    dev = _card()
+    tc = K.pack_table(load_table("gelu_inner", 16), dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = (torch.randn((1, 1500, 4096), generator=gen, device=dev) * 3.0
+         ).to(getattr(torch, dtype))
+    assert torch.equal(fused.ppa_fused_apply(tc, x, True),
+                       fused.ppa_fused_plain(tc, x, True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b"])
+def test_encdec_and_vision_smoke_serve_on_card(arch):
+    """The whisper and internvl smoke configs with act_impl="ppa" served
+    on the card through cuda_fused, each request with its own extras:
+    every request finishes, the fused and softmax kernels launch at least
+    layers x engine steps times, no plain version runs, and the tokens
+    are the plain versions' (``ref``) on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import request_extras
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.serve import Request, ServeEngine
+    dev = _card()
+    cfg = get_smoke_config(arch).replace(act_impl="ppa")
+    params = init_params(param_specs(cfg), 0, device=dev)
+    outs = []
+    for backend in ("cuda_fused", "ref"):
+        eng = ServeEngine(cfg, params, n_slots=4, cache_len=64,
+                          act_backend=backend, device=dev)
+        rng = np.random.default_rng(0)
+        reqs = []
+        for i, n in enumerate((9, 5, 12, 3, 7, 9)):
+            extra = request_extras(cfg, rng)
+            reqs.append(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab, n).astype(np.int32), max_new_tokens=6,
+                extra=extra))
+        K.reset_counts()
+        for r in reqs:
+            eng.submit(r)
+        steps = 0
+        while eng.step() or eng.queue:
+            steps += 1
+        assert all(r.done and len(r.output) == 6 for r in reqs)
+        outs.append([r.output for r in reqs])
+        c = K.read_counts()
+        if backend == "cuda_fused":
+            need = cfg.n_layers * steps
+            assert c["ppa_fused"]["launches"] >= need
+            assert c["softmax_ppa"]["launches"] >= need
+            assert not any(v.get("plain", 0) for v in c.values())
+    assert outs[0] == outs[1]

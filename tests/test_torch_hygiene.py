@@ -42,7 +42,13 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.configs.kimi_k2_1t_a32b",
             "repro_torch.models.scan", "repro_torch.models.ssm",
             "repro_torch.models.rwkv", "repro_torch.configs.hymba_1_5b",
-            "repro_torch.configs.rwkv6_3b"} <= set(mods)
+            "repro_torch.configs.rwkv6_3b",
+            "repro_torch.configs.whisper_medium",
+            "repro_torch.configs.internvl2_26b",
+            "repro_torch.models.attention", "repro_torch.models.layers",
+            "repro_torch.models.mlp", "repro_torch.models.transformer",
+            "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -143,7 +143,7 @@ def test_forward_hidden_matches_reference(model, store):
                                 RM.ShardCtx())
     with torch.inference_mode():
         got = forward_hidden(prepare_params(params, cfg), cfg,
-                             torch.from_numpy(tokens),
+                             {"tokens": torch.from_numpy(tokens)},
                              make_acts("ppa", None, "cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=LOGIT_GAP_BOUND)
@@ -153,24 +153,37 @@ def test_forward_hidden_matches_reference(model, store):
                                    "enc_layers", "vision_tokens",
                                    "layernorm"])
 def test_unported_options_are_refused(field):
-    """What the port does not run yet is refused: the encoder-decoder
-    stage kinds, an encoder, the vision prefix and layernorm.  The
-    recurrent kinds (``hyb``, ``rwkv``) are ported and build their specs
-    (their parity is in ``test_torch_recurrent*.py``)."""
-    cfg = get_smoke_config(ARCH)
+    """Every stage kind, the encoder, the vision prefix and layernorm are
+    ported now: each builds the reference's spec tree.  What the reference
+    does not have is refused: an unknown stage kind or norm, and a decode
+    cache for an ``enc`` stage, which the reference only runs in full
+    sequences."""
+    rcfg, cfg = RC.get_smoke_config(ARCH), get_smoke_config(ARCH)
     if field in ("hyb", "rwkv", "enc", "xdec"):
-        cfg = cfg.replace(stages=(dataclasses.replace(cfg.stages[0],
-                                                      kind=field),))
+        rcfg, cfg = (c.replace(stages=(dataclasses.replace(
+            c.stages[0], kind=field),)) for c in (rcfg, cfg))
     elif field == "layernorm":
-        cfg = cfg.replace(norm="layernorm")
+        rcfg, cfg = rcfg.replace(norm=field), cfg.replace(norm=field)
     else:
-        cfg = cfg.replace(**{field: 4})
-    if field in ("hyb", "rwkv"):
-        stage = param_specs(cfg)["stages"][f"s0_{field}"]
-        assert {"hyb": "ssm", "rwkv": "tm"}[field] in stage
-        return
-    with pytest.raises(NotImplementedError):
-        param_specs(cfg)
+        kw = {field: 4, "enc_seq": 4} if field == "enc_layers" else {
+            field: 4}
+        rcfg, cfg = rcfg.replace(**kw), cfg.replace(**kw)
+    flat = jax.tree_util.tree_flatten_with_path(
+        RM.param_specs(rcfg), is_leaf=lambda x: isinstance(x, RM.P))[0]
+    mine = param_specs(cfg)
+    for path, spec in flat:
+        node = mine
+        for k in path:
+            node = node[k.key]
+        assert (node.shape, node.axes, node.init, node.scale) == (
+            spec.shape, spec.axes, spec.init, spec.scale), path
+    if field == "enc":
+        with pytest.raises(NotImplementedError):
+            init_cache(cfg, 1, 8, device="cpu")
+    for bad in (dict(norm="batchnorm"), dict(stages=(dataclasses.replace(
+            cfg.stages[0], kind="conv"),))):
+        with pytest.raises(NotImplementedError):
+            param_specs(cfg.replace(**bad))
 
 
 @pytest.mark.parametrize("member", ["sigmoid", "tanh", "gelu", "silu",

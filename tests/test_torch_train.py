@@ -143,7 +143,9 @@ def test_opt_update_matches_reference(kind):
     p_np = _opt_tree(0)
     rp = jax.tree_util.tree_map(jnp.asarray, p_np)
     rs = RT.opt_init(rcfg, rp)
-    tp = map_tree(torch.from_numpy, p_np)
+    # each package its own buffers: jnp.asarray may alias an aligned numpy
+    # array on the CPU, and opt_update writes the port's params in place
+    tp = params_from_jax(p_np, "cpu")
     ts = params_from_jax(_np(rs), "cpu")
     for i in range(3):
         g_np = map_tree(lambda a: a * 0.1, _opt_tree(10 + i))
@@ -151,7 +153,7 @@ def test_opt_update_matches_reference(kind):
         rp, rs = RT.opt_update(rcfg, jax.tree_util.tree_map(jnp.asarray,
                                                             g_np),
                                rs, rp, jnp.float32(lr))
-        tp, ts = opt_update(cfg, map_tree(torch.from_numpy, g_np), ts, tp,
+        tp, ts = opt_update(cfg, params_from_jax(g_np, "cpu"), ts, tp,
                             torch.tensor(lr))
     assert int(ts["count"]) == int(rs["count"]) == 3
     for (k, got), (_, want) in zip(leaves_with_path(tp),
@@ -168,10 +170,38 @@ def test_opt_update_matches_reference(kind):
             _close(got, want, OPT_RTOL, OPT_ATOL, k)
 
 
+def _aligned(shape, seed):
+    """A float32 numpy array whose buffer starts on a 64-byte boundary,
+    which ``jnp.asarray`` on the CPU may wrap without a copy."""
+    n = int(np.prod(shape)) * 4
+    raw = np.empty(n + 64, np.uint8)
+    off = -raw.ctypes.data % 64
+    a = raw[off:off + n].view(np.float32).reshape(shape)
+    a[...] = np.random.default_rng(seed).normal(size=shape)
+    return a
+
+
+def test_port_copy_does_not_share_the_reference_buffer():
+    """What the optimizer test hands the port (``params_from_jax``) owns
+    its memory: an in-place write by the port leaves the reference's array
+    and the numpy source as they were."""
+    a = _aligned((9, 5), 0)
+    assert a.ctypes.data % 64 == 0
+    want = a.copy()
+    ref = jnp.asarray(a)
+    got = params_from_jax({"m": a}, "cpu")["m"]
+    assert not np.shares_memory(got.numpy(), a)
+    assert got.data_ptr() != ref.unsafe_buffer_pointer()
+    got.add_(1.0)
+    np.testing.assert_array_equal(np.asarray(ref.block_until_ready()), want)
+    np.testing.assert_array_equal(a, want)
+    np.testing.assert_array_equal(got.numpy(), want + 1.0)
+
+
 def test_clip_grads_and_global_norm_match_reference():
     g_np = _opt_tree(3)
     rg = jax.tree_util.tree_map(jnp.asarray, g_np)
-    tg = map_tree(torch.from_numpy, g_np)
+    tg = params_from_jax(g_np, "cpu")
     _close(global_norm(tg), RT.global_norm(rg), 1e-6, 0)
     for max_norm in (1.0, 1e4):
         (got, n), (want, rn) = clip_grads(tg, max_norm), RT.clip_grads(
