@@ -110,6 +110,25 @@ Phases (any failure exits non-zero and prints no result line):
             0.02) of (256, 6144): as serve_whisper
 20. parity_vlm  internvl at full width, 2 layers, float32, the vision
             prefix before each prompt: the parity phase's arms and controls
+21. compile the FQA compiler on the card: the six 16-bit deployment tables
+            (``ppa_table_jobs("ppa")``) compiled by ``TorchSearchBackend``
+            through ``compile_or_load`` into a fresh store, each equal to
+            the shipped JSON; then each compiled again by the port's numpy
+            backend on the host (one spawned process a table), equal by
+            ``table_identity`` with the same candidate evaluations; per
+            table both wall times, candidate evaluations a second and the
+            card's dispatches (one host sync each)
+22. workflow  the paper's hardware-constrained flow (Fig. 7): sigmoid at
+            SEG_t 16, order 1 and 2 (8-bit FWLs), on the card's backend
+            through one CompilerSession; the winner resolved through a
+            store twice, the second a disk hit with no session call, then
+            packed on the card and run through ``ppa_apply``/``ppa_gate``
+            on ``cuda_fused`` and ``cuda_int``, each equal to the plain
+            version bit for bit
+23. serve_store  the serve phase with ``make_acts(store=<the compile
+            phase's store>)``: the packed constants equal the shipped
+            tables', the greedy tokens the serve phase's, and the serve
+            phase's launch gates hold
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
@@ -906,11 +925,12 @@ def _cut(cfg, layers: int):
         enc_layers=min(cfg.enc_layers, layers))
 
 
-def _serve(torch, dev, cfg, n_requests, max_new, lens):
+def _serve(torch, dev, cfg, n_requests, max_new, lens, acts=None):
     """Serve ``n_requests``, each with the extras the launcher draws
     (``request_extras``: frame or patch embeddings from the seeded
     generator, before each prompt); returns (engine, requests, step
-    times)."""
+    times).  ``acts``: the engine's activation bundle in place of the one
+    it builds from ``cfg``."""
     import numpy as np
     from repro_torch.kernels import reset_counts
     from repro_torch.launch.serve import request_extras
@@ -922,6 +942,8 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens):
     eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
                       cache_len=SERVE_CACHE_LEN, device=dev)
     del params
+    if acts is not None:
+        eng.acts = acts
     eng.warmup(sorted(set(lens)))
     rng = np.random.default_rng(0)
     reqs = []
@@ -954,15 +976,29 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens):
     return eng, reqs, steps, wall
 
 
-def phase_serve(torch, dev, card):
+def phase_serve(torch, dev, card, store=None):
+    """``store``: serve with the tables of this ``TableStore``
+    (``make_acts(store=...)``, the serve_store phase): its packed
+    constants must be the shipped tables' and its greedy tokens the serve
+    phase's."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts
+    from repro_torch.models import make_acts
 
+    tag = "serve" if store is None else "serve_store"
     cfg = get_config("internlm2-1.8b").replace(
         act_impl="ppa", compute_dtype="bfloat16")
+    acts = None
+    if store is not None:
+        _check_store_tables(torch, dev, store)
+        acts = make_acts(cfg.act_impl, cfg.act_backend, dev, store=store)
     lens = [32, 128, 64, 96, 48, 128, 80, 112][:SERVE_REQUESTS]
     eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
-                                    SERVE_NEW, lens)
+                                    SERVE_NEW, lens, acts)
+    TOKENS[tag] = [list(r.output) for r in reqs]
+    if store is not None and TOKENS[tag] != TOKENS.get("serve"):
+        raise AssertionError("the store-served greedy tokens differ from "
+                             "the serve phase's")
     counts = read_counts()
     n_steps = len(steps)
     need = cfg.n_layers * n_steps
@@ -978,7 +1014,7 @@ def phase_serve(torch, dev, card):
     adm_ms = [t * 1e3 - dec_ms for t, adm in steps if adm > 0]
     tokens = sum(len(r.output) for r in reqs)
     mem = torch.cuda.max_memory_allocated(dev)
-    log(f"[serve] internlm2-1.8b 24L d_model 2048 bf16 act_impl=ppa "
+    log(f"[{tag}] internlm2-1.8b 24L d_model 2048 bf16 act_impl=ppa "
         f"act_backend={eng.cfg.act_backend}: {len(reqs)} requests, {tokens}"
         f" tokens in {wall:.3f}s = {tokens / wall:.1f} tok/s over "
         f"{n_steps} engine steps; decode {dec_ms:.2f} ms/step (median); "
@@ -993,9 +1029,13 @@ def phase_serve(torch, dev, card):
                   for label, shape in shapes.items()}}
            for k, shapes in (("ppa_fused", FUSED_SHAPES),
                              ("softmax_ppa", SOFTMAX_SHAPES))}
-    log(f"[serve] launches fused={counts['ppa_fused']['launches']} softmax="
+    log(f"[{tag}] launches fused={counts['ppa_fused']['launches']} softmax="
         f"{counts['softmax_ppa']['launches']} (layers x steps = {need}); "
         f"by shape {by_shape}; plain calls {plain}")
+    if store is not None:
+        log(f"[{tag}] the store's 6 tables pack to the shipped constants; "
+            f"greedy tokens equal to the serve phase's ({tokens} tokens)")
+        return out, {}
     rows = path_rows(torch, dev, "serve", by_shape)
     log_rows("serve", rows)
     return out, rows
@@ -1791,6 +1831,260 @@ def phase_flash(torch, dev):
     return {"ppa_fused": {"total": counts["ppa_fused"]["launches"]}}, rows
 
 
+# -- the FQA compiler on the card ---------------------------------------------
+#: the compile phase's store, under the checkout's ignored build/
+STORE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_store"
+#: worker processes of the numpy compiles, one table each
+NUMPY_PROCESSES = 6
+#: the workflow phase's hardware segment capacity and NAF
+WORKFLOW_SEG_T = 16
+WORKFLOW_NAF = "sigmoid"
+#: the shipped JSON's field set (tests/test_torch_tables.py::FIELDS)
+TABLE_FIELDS = ("naf", "interval", "cfg", "scheme", "starts_int", "a_int",
+                "b_int", "mae_hard", "mae_t")
+#: greedy tokens of the serve phases, by phase
+TOKENS = {}
+
+
+def _numpy_compile(naf: str, bits: int):
+    """Compile one deployment table with the port's numpy backend in a
+    worker process (spawned: it reaches no card), single-threaded;
+    returns (JSON, seconds)."""
+    import os
+    for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[k] = "1"             # before numpy loads
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.compiler import CompileJob
+    from repro_torch.models import ppa_table_jobs
+
+    job = next(CompileJob(*j, search_backend="numpy")
+               for j in ppa_table_jobs("ppa" if bits == 16 else "ppa8")
+               if j[0] == naf)
+    t0 = time.perf_counter()
+    table = job.compile()
+    return table.to_json(), time.perf_counter() - t0
+
+
+def _numpy_compiles(jobs):
+    """{naf: (table, seconds)} of ``jobs`` on the numpy backend, one
+    single-threaded worker process a table (spawned, so that none inherits
+    this process's CUDA context); every worker has ended on return."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.core import PPATable
+
+    with ProcessPoolExecutor(
+            max_workers=min(NUMPY_PROCESSES, len(jobs)),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = {naf: ex.submit(_numpy_compile, naf, cfg.w_out)
+                for naf, cfg, _ in jobs}
+        out = {}
+        for naf, fut in futs.items():
+            js, sec = fut.result()
+            out[naf] = (PPATable.from_json(js), sec)
+    return out
+
+
+def phase_compile(torch, dev, card):
+    """The six 16-bit deployment tables compiled on the card
+    (``TorchSearchBackend``) through ``compile_or_load`` into a fresh
+    store: each equal to the shipped JSON on its fields, and each equal
+    (``table_identity``) to the port's numpy backend's compile of it on
+    the host.  Returns the store."""
+    import json as _json
+    import shutil
+    from repro_torch.compiler import (CompilerSession, TableStore,
+                                      compile_table, table_identity)
+    from repro_torch.core import FWLConfig, PPAScheme
+    from repro_torch.core import searchspace
+    from repro_torch.models import ppa_table_jobs
+    from repro_torch.tables import table_path
+
+    jobs = ppa_table_jobs("ppa")
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    store = TableStore(STORE_DIR)
+    backend = searchspace.TorchSearchBackend(dev)
+    # first use of the card's backend (allocator, library handles) outside
+    # the timed compiles: a small order-2 table
+    compile_table("sigmoid", FWLConfig(7, 7, (7, 7), (7, 7), 7),
+                  PPAScheme(order=2), session=CompilerSession(),
+                  search_backend=backend)
+    torch.cuda.synchronize()
+    card_tabs = {}
+    for naf, cfg, scheme in jobs:
+        before = dict(backend.counts)
+        t0 = time.perf_counter()
+        tab = store.compile_or_load(naf, cfg, scheme,
+                                    search_backend=backend)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        cnt = {k: v - before[k] for k, v in backend.counts.items()}
+        card_tabs[naf] = (tab, sec)
+        shipped = _json.loads(table_path(naf, 16).read_text())
+        got = _json.loads(tab.to_json())
+        bad = [k for k in TABLE_FIELDS if got[k] != shipped[k]]
+        if bad or sorted(shipped) != sorted(TABLE_FIELDS):
+            raise AssertionError(f"{naf}-16 compiled on the card differs "
+                                 f"from the shipped JSON in {bad}")
+        evals = int(tab.stats["candidate_evals"])
+        log(f"[compile] {naf}-16 FQA-O2 on the card (torch): "
+            f"{tab.num_segments} segments, "
+            f"{int(tab.stats['segment_evals'])} segment evaluations, "
+            f"{evals} candidate evaluations in {sec:.3f} s = "
+            f"{evals / sec:,.0f}/s; {cnt['dispatches']} dispatches "
+            f"({cnt['blocks']} blocks, {cnt['lanes']} padded lanes); "
+            f"equal to the shipped JSON; card {card}")
+    if store.compiles != len(jobs):
+        raise AssertionError(f"{store.compiles} compiles for {len(jobs)} "
+                             "jobs into a fresh store")
+    t0 = time.perf_counter()
+    host = _numpy_compiles(jobs)
+    wall = time.perf_counter() - t0
+    total = {"torch": 0.0, "numpy": 0.0}
+    for naf, _, _ in jobs:
+        tab, sec = card_tabs[naf]
+        ref, ref_sec = host[naf]
+        if table_identity(ref) != table_identity(tab):
+            raise AssertionError(f"{naf}-16: the numpy backend's table is "
+                                 "not the card's")
+        evals = int(tab.stats["candidate_evals"])
+        if int(ref.stats["candidate_evals"]) != evals:
+            raise AssertionError(f"{naf}-16: candidate evaluations differ "
+                                 f"({evals} on the card, "
+                                 f"{int(ref.stats['candidate_evals'])})")
+        total["torch"] += sec
+        total["numpy"] += ref_sec
+        log(f"[compile] {naf}-16 on the host (numpy, one process of "
+            f"{min(NUMPY_PROCESSES, len(jobs))}): {ref_sec:.3f} s = "
+            f"{evals / ref_sec:,.0f} candidate evaluations/s; numpy's time "
+            f"over the card's {ref_sec / sec:.2f}; table_identity equal")
+    log(f"[compile] six 16-bit tables: card {total['torch']:.3f} s in all; "
+        f"host numpy {total['numpy']:.3f} s summed over its processes, "
+        f"{wall:.3f} s wall; store {store.stats()}; card {card}")
+    return store
+
+
+def phase_workflow(torch, dev, card):
+    """The paper's Fig. 7 flow on the card's backend: sigmoid at SEG_t 16,
+    order 1 and 2, through one ``CompilerSession``; the winner resolved
+    twice through a store (the second a pure disk hit with no session
+    call) and run through ``pack_table`` and ``ppa_apply`` on the card,
+    ``cuda_fused`` and ``cuda_int`` each equal to its plain version."""
+    import shutil
+    from repro_torch.compiler import (CompilerSession, TableStore,
+                                      table_identity)
+    from repro_torch.core import (FWLConfig, PPAScheme, TorchSearchBackend,
+                                  hardware_constrained_ppa)
+    from repro_torch.kernels import pack_table, ppa_apply, ppa_gate
+    from repro_torch.kernels import fused, ppa, ref
+
+    root = STORE_DIR.parent / "chip_smoke_workflow"
+    shutil.rmtree(root, ignore_errors=True)
+    session = CompilerSession()
+    backend = TorchSearchBackend(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    try:
+        for order in (1, 2):
+            cfg = FWLConfig(w_in=8, w_out=8, w_a=(8,) * order,
+                            w_o=(8,) * order, w_b=8)
+            scheme = PPAScheme(order=order, quantizer="fqa")
+            t0 = time.perf_counter()
+            res = hardware_constrained_ppa(
+                WORKFLOW_NAF, cfg, scheme, seg_t=WORKFLOW_SEG_T,
+                session=session, search_backend=backend)
+            tab = res.table
+            store = TableStore(root)
+            dep = store.compile_or_load(
+                WORKFLOW_NAF, cfg, scheme, mae_t=tab.mae_t,
+                tseg=WORKFLOW_SEG_T, session=session, search_backend=backend)
+            sec = time.perf_counter() - t0
+            if table_identity(dep) != table_identity(tab):
+                raise AssertionError(f"order {order}: the store's table is "
+                                     "not the workflow's winner")
+            before = session.counters()
+            again = TableStore(root)
+            hit = again.compile_or_load(
+                WORKFLOW_NAF, cfg, scheme, mae_t=tab.mae_t,
+                tseg=WORKFLOW_SEG_T, session=session)
+            st = again.stats()
+            if (session.counters() != before or st["hits_disk"] != 1
+                    or st["misses"] or hit.to_json() != dep.to_json()):
+                raise AssertionError(f"order {order}: the second resolution "
+                                     f"was not a pure hit: {st}")
+            tc = pack_table(dep, dev)
+            span = tc.hi - tc.lo
+            x_int = torch.arange(tc.lo - span, tc.hi + span, device=dev,
+                                 dtype=torch.int32)
+            if not torch.equal(ppa.ppa_eval_int(tc, x_int),
+                               ref.ppa_eval_ref(x_int, tc.starts, tc.coefs,
+                                                tc.plan)):
+                raise AssertionError(f"order {order}: cuda_int != plain")
+            x = torch.cat([torch.linspace(-1.5, 1.5, 4099, device=dev),
+                           torch.randn(8192, generator=gen, device=dev)])
+            checks = 0
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                for op in (ppa_apply, ppa_gate):
+                    want = op(tc, xd, backend="ref")
+                    for be in ("cuda_fused", "cuda_int"):
+                        got = op(tc, xd, backend=be)
+                        checks += 1
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"order {order} {be} {op.__name__} {dt}: "
+                                "!= plain")
+                got = fused.ppa_fused_apply(tc, xd)
+                if not torch.equal(got, fused.ppa_fused_plain(tc, xd)):
+                    raise AssertionError(f"order {order} {dt}: fused != "
+                                         "its plain version")
+            xi = torch.linspace(-0.999, 0.999, 4096, device=dev)
+            err = float((torch.sigmoid(xi) - ppa_apply(
+                tc, xi, backend="cuda_fused")).abs().max())
+            c = session.counters()
+            log(f"[workflow] {WORKFLOW_NAF} order {order} {cfg} SEG_t="
+                f"{WORKFLOW_SEG_T}: {tab.num_segments} segments, MAE_hard "
+                f"{tab.mae_hard:.6e} in {res.iterations} iterations, "
+                f"{sec:.3f} s on the card; session so far {c['calls']} "
+                f"window requests, {c['misses']} scans, {c['hits']} hits, "
+                f"{c['pruned']} pruned, {c['warm_hits']} warm, "
+                f"{c['cand_evals']} candidate evaluations; second "
+                f"resolution a disk hit with no session call; cuda_int "
+                f"exact on {x_int.numel()} integers, cuda_fused and "
+                f"cuda_int == plain in {checks} checks; max|sigmoid - T| on "
+                f"[-0.999, 0.999] {err:.3e}; card {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_serve_store(torch, dev, card, store):
+    """The serve phase through the compile phase's store."""
+    if store is None:
+        raise AssertionError("no store: the compile phase failed")
+    return phase_serve(torch, dev, card, store)
+
+
+def _check_store_tables(torch, dev, store):
+    """The store's six 16-bit tables pack to the shipped tables'
+    constants."""
+    from repro_torch.compiler import CompileJob
+    from repro_torch.kernels import pack_table
+    from repro_torch.models import ppa_table_jobs
+    from repro_torch.tables import load_table
+
+    for naf, cfg, scheme in ppa_table_jobs("ppa"):
+        tab = store.lookup(CompileJob(naf, cfg, scheme))
+        if tab is None:
+            raise AssertionError(f"{naf}-16 is not in the compile phase's "
+                                 "store")
+        a, b = pack_table(tab, dev), pack_table(load_table(naf, 16), dev)
+        if (a.lo, a.hi, a.plan) != (b.lo, b.hi, b.plan) or not all(
+                torch.equal(getattr(a, k), getattr(b, k))
+                for k in ("starts", "coefs", "idx_lut", "val_lut")):
+            raise AssertionError(f"{naf}-16: the store's packed constants "
+                                 "differ from the shipped table's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1853,6 +2147,11 @@ def main() -> int:
                                  card, VLM_ARCH, "serve_vlm")
         run("parity_vlm", phase_parity, torch, dev, VLM_ARCH, 2,
             "parity_vlm")
+        _free(torch)
+        store = run("compile", phase_compile, torch, dev, card)
+        run("workflow", phase_workflow, torch, dev, card)
+        paths["serve_store"] = run("serve_store", phase_serve_store, torch,
+                                   dev, card, store)
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")

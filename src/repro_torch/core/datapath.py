@@ -1,11 +1,14 @@
 """The FQA-On fixed-point Horner datapath: word lengths, the shift plan and
 the one integer Horner chain.
 
-A copy of ``repro.core.datapath`` (``FWLConfig``, ``DatapathPlan``,
-``apply_shift``, ``horner_body``).  The chain uses only ``* + >> <<``, so
-the same code runs on numpy int64 (the golden model and the pack-time
-overflow guard) and on torch int32 tensors (the plain version of the
-kernels); ``>>`` on signed integers is the arithmetic shift in both.
+A copy of the JAX package's ``core/datapath.py`` (``FWLConfig``,
+``DatapathPlan``, ``apply_shift``, ``horner_body``, ``horner_fixed``,
+``concat_add``).  The chain uses only ``* + >> <<``, so the same code runs
+on numpy int64 (the golden model, the compiler's candidate scan and the
+pack-time overflow guard), on torch int32 tensors (the plain version of
+the kernels), on torch int64 tensors (the search backend on the card) and
+on the certifier's intervals; ``>>`` on signed integers is the arithmetic
+shift in all of them.
 ``ppa_body.cuh`` is the CUDA transcription; parity tests hold them equal.
 
     h1 = trunc(a1 * x)                      -> FWL w_o[0]
@@ -20,7 +23,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Tuple
 
-__all__ = ["FWLConfig", "DatapathPlan", "apply_shift", "horner_body"]
+import numpy as np
+
+from .fixed_point import trunc_shift
+
+__all__ = ["FWLConfig", "DatapathPlan", "apply_shift", "horner_body",
+           "horner_fixed", "concat_add"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +60,15 @@ class FWLConfig:
     @property
     def order(self) -> int:
         return len(self.w_a)
+
+    def d_bits(self, i: int) -> int:
+        """FQA offset-space width k_i for stage i (0-based): the low k_i
+        fractional bits of a_i act on the output only through the
+        truncation at multiplier i (paper Eq. 4/5)."""
+        return max(0, self.w_a[i] + self.w_in - self.w_o[i])
+
+    def replace(self, **kw) -> "FWLConfig":
+        return dataclasses.replace(self, **kw)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -116,7 +133,8 @@ def apply_shift(v, sh: int):
     return v
 
 
-def horner_body(plan: DatapathPlan, sel: Sequence, x, *, tap=None):
+def horner_body(plan: DatapathPlan, sel: Sequence, x, *,
+                return_pre_b: bool = False, tap=None):
     """The fixed-point Horner chain.
 
     Args:
@@ -124,11 +142,13 @@ def horner_body(plan: DatapathPlan, sel: Sequence, x, *, tap=None):
       sel: ``order + 1`` coefficient arrays (a_1..a_n then b), already
         selected per element of ``x``.
       x: integer input array at FWL ``plan.w_in``.
+      return_pre_b: also return ``(h_n, plan.w_pre_b)``, the value before
+        the intercept add, which the quantizer's error flattening reads.
       tap: optional ``tap(name, value)`` callback observing every named
         intermediate: ``p{i}`` (multiplier output entering its truncation
         shift, rounder addend included), ``h{i}``, ``g{i}``, ``sum`` and
         ``out``.  The pack-time int32 guard runs the chain in int64 through
-        this hook.
+        this hook, and the certifier runs it on intervals.
     """
     if len(sel) != plan.order + 1:
         raise ValueError(
@@ -159,4 +179,37 @@ def horner_body(plan: DatapathPlan, sel: Sequence, x, *, tap=None):
     out = apply_shift(out, plan.down_out)
     if tap is not None:
         tap("out", out)
+    if return_pre_b:
+        return out, (h, plan.w_pre_b)
     return out
+
+
+def concat_add(u, w_u: int, v, w_v: int):
+    """Concatenation adder: exact add of fixed(u, w_u) + fixed(v, w_v).
+
+    Returns (sum_int, w_sum) with w_sum = max(w_u, w_v); the narrow adder
+    plus bit stitch of paper Fig. 3 computes exactly this value.
+    """
+    w = max(w_u, w_v)
+    return trunc_shift(u, w_u - w) + trunc_shift(v, w_v - w), w
+
+
+def horner_fixed(a_int: Sequence[np.ndarray], b_int: np.ndarray,
+                 x_int: np.ndarray, cfg: FWLConfig, *,
+                 return_pre_b: bool = False, tap=None):
+    """Evaluate the order-n fixed-point Horner datapath on numpy arrays.
+
+    ``a_int[i]`` (FWL ``cfg.w_a[i]``) and ``b_int`` (FWL ``cfg.w_b``)
+    broadcast against each other and against the trailing grid axis of
+    ``x_int`` (FWL ``cfg.w_in``, shape (..., G)).  Returns the output at
+    FWL ``cfg.w_out`` (plus the pre-intercept tuple with
+    ``return_pre_b``).
+    """
+    n = cfg.order
+    if len(a_int) != n:
+        raise ValueError(f"expected {n} coefficient arrays, got {len(a_int)}")
+    x = np.asarray(x_int)
+    sel = [np.asarray(a)[..., None] for a in a_int]
+    sel.append(np.asarray(b_int)[..., None])
+    return horner_body(DatapathPlan.from_config(cfg), sel, x,
+                       return_pre_b=return_pre_b, tap=tap)

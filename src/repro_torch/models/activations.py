@@ -9,6 +9,10 @@ datapath (with straight-through gradients).
   "exact"  — torch ops (the float baseline)
   "ppa"    — 16-bit FQA-O2 tables (W_i=8 W_a=(8,16) W_o=(16,16) W_b=16)
   "ppa8"   — the 8-bit FQA-S4-O1 tables
+
+The tables come from the shipped JSON (:mod:`repro_torch.tables`), or,
+given ``store=``, from a :class:`~repro_torch.compiler.TableStore`: each
+table is ``store.compile_or_load(...)`` (a hit, or a compile into it).
 """
 
 from __future__ import annotations
@@ -90,22 +94,21 @@ def ppa_table_jobs(impl: str):
     return [(naf, cfg, scheme) for naf in NAFS]
 
 
-def _tc(naf: str, bits: int, device: torch.device) -> TableConsts:
+def _tc(naf: str, bits: int, device: torch.device, store=None
+        ) -> TableConsts:
     cfg, scheme = (_CFG16, _SCHEME16) if bits == 16 else (_CFG8, _SCHEME8)
-    table = load_table(naf, bits)
+    table = (load_table(naf, bits) if store is None
+             else store.compile_or_load(naf, cfg, scheme))
     if table.cfg != cfg or table.scheme != scheme:
         raise ValueError(f"shipped table {naf}-{bits} is not the "
                          f"{cfg} / {scheme.tag} deployment point")
     return pack_table(table, device)
 
 
-def _ppa_bundle(bits: int, backend: str, device: torch.device) -> ActBundle:
-    sig = _tc("sigmoid_wide", bits, device)
-    tnh = _tc("tanh_wide", bits, device)
-    phi = _tc("gelu_inner", bits, device)
-    sp = _tc("softplus", bits, device)
-    en = _tc("exp_neg", bits, device)
-    e2 = _tc("exp2_frac", bits, device)
+def _ppa_bundle(bits: int, backend: str, device: torch.device,
+                store=None) -> ActBundle:
+    sig, tnh, phi, sp, en, e2 = (_tc(naf, bits, device, store)
+                                 for naf in NAFS)
 
     def softmax(x, axis=-1, where=None):
         return ppa_softmax(e2, x, axis=axis, where=where, backend=backend)
@@ -122,16 +125,19 @@ def _ppa_bundle(bits: int, backend: str, device: torch.device) -> ActBundle:
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_bundle(impl: str, backend: str, device: torch.device
+def _cached_bundle(impl: str, backend: str, device: torch.device, store
                    ) -> ActBundle:
     if impl == "exact":
         return _exact_bundle()
-    return _ppa_bundle(_bits(impl), backend, device)
+    return _ppa_bundle(_bits(impl), backend, device, store)
 
 
-def make_acts(impl: str = "exact", backend=None, device=None) -> ActBundle:
+def make_acts(impl: str = "exact", backend=None, device=None,
+              store=None) -> ActBundle:
     """The bundle for ``impl`` on ``device`` (None: the card) through
-    ``backend`` (None: the fused CUDA kernel).  Cached per (impl, backend,
-    device)."""
+    ``backend`` (None: the fused CUDA kernel).  ``store``: a
+    ``TableStore`` the tables resolve through (None: the shipped JSON).
+    Cached per (impl, backend, device, store)."""
     return _cached_bundle(impl, backend or DEFAULT_BACKEND,
-                          resolve_device(device))
+                          resolve_device(device),
+                          None if impl == "exact" else store)

@@ -507,3 +507,61 @@ def test_encdec_and_vision_smoke_serve_on_card(arch):
             assert c["softmax_ppa"]["launches"] >= need
             assert not any(v.get("plain", 0) for v in c.values())
     assert outs[0] == outs[1]
+
+
+def _fits_equal(a, b):
+    for k in ("ok", "mae", "a_int", "b_int", "mae0", "n_satisfying",
+              "evals", "warm_hit", "truncated"):
+        assert getattr(a, k) == getattr(b, k), k
+    if a.a_candidates is None:
+        assert b.a_candidates is None
+    else:
+        assert np.array_equal(a.a_candidates, b.a_candidates)
+        assert np.array_equal(a.b_candidates, b.b_candidates)
+
+
+@pytest.mark.gpu
+def test_torch_search_backend_on_card():
+    """The card's candidate blocks (single, multi-window and batched) and
+    ``fit_segment`` over CFG1/CFG2, the five quantizers and the
+    feasible/best/full modes, bit-equal to the port's numpy backend."""
+    from repro_torch.core import (FWLConfig, get_naf, grid_for_interval,
+                                  make_quantizer)
+    from repro_torch.core.searchspace import (NumpySearchBackend,
+                                              TorchSearchBackend)
+    dev = _card()
+    card = TorchSearchBackend()
+    assert card.device.type == "cuda"
+    host = NumpySearchBackend()
+    cfg1 = FWLConfig(7, 7, (7,), (7,), 7)
+    cfg2 = FWLConfig(7, 7, (7, 7), (7, 7), 7)
+    spec = get_naf("sigmoid")
+    for cfg in (cfg1, cfg2):
+        x = grid_for_interval(*spec.interval, cfg.w_in)
+        f = spec(x.astype(np.float64) / (1 << cfg.w_in))
+        rng = np.random.default_rng(cfg.order)
+        ctxs = [host.context(x[s:e], f[s:e], cfg, flatten_b=fb, b_fixed=3)
+                for s, e, fb in ((0, 24, True), (5, 70, True),
+                                 (40, 41, False))]
+        blocks = [[rng.integers(-300, 300, k) for _ in range(cfg.order)]
+                  for k in (1, 77, 300)]
+        want = [host.eval_block(c, b) for c, b in zip(ctxs, blocks)]
+        # one multi-window dispatch shares the intercept mode
+        got = card.eval_block_multi(list(zip(ctxs[:2], blocks[:2])))
+        got += [card.eval_block(c, b) for c, b in zip(ctxs, blocks)]
+        for c in (ctxs[1], ctxs[2]):
+            got += list(card.eval_block_batch(c, blocks))
+        want = (want[:2] + want + [host.eval_block(c, b)
+                                   for c in (ctxs[1], ctxs[2])
+                                   for b in blocks])
+        for (m, bi, m0), (wm, wb, wm0) in zip(got, want):
+            k = int(np.argmin(wm))
+            assert np.array_equal(m, wm) and np.array_equal(bi, wb)
+            assert m0[k] == wm0[k]
+        for qname in ("fqa", "fqa_fast", "qpa", "plac", "mlplac"):
+            for mode in ("feasible", "best", "full"):
+                w = 24 if cfg.order == 2 else 37
+                fits = [make_quantizer(qname, backend=b).fit_segment(
+                    x[3:3 + w], f[3:3 + w], cfg, 0.5 ** 8, mode=mode)
+                    for b in (host, card)]
+                _fits_equal(*fits)

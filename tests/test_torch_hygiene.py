@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-and ``chip_smoke.py`` refuses to run without a CUDA card or without the
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package
+(its compiler, faults and analysis modules included), and ``chip_smoke.py``
+refuses to run without a CUDA card or without the
 repository beside it."""
 
 import os
@@ -49,6 +50,15 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.models.mlp", "repro_torch.models.transformer",
             "repro_torch.serve.engine",
             "repro_torch.launch.serve"} <= set(mods)
+    # the FQA compiler: its core modules, compiler, faults and analysis
+    assert {"repro_torch.core.fixed_point", "repro_torch.core.remez",
+            "repro_torch.core.searchspace", "repro_torch.core.quantize",
+            "repro_torch.core.segmentation", "repro_torch.core.registry",
+            "repro_torch.core.workflow", "repro_torch.compiler.memo",
+            "repro_torch.compiler.compile", "repro_torch.compiler.store",
+            "repro_torch.compiler.batch", "repro_torch.faults.registry",
+            "repro_torch.analysis.intervals",
+            "repro_torch.analysis.certify"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
