@@ -128,7 +128,8 @@ Phases (any failure exits non-zero and prints no result line):
 23. serve_store  the serve phase with ``make_acts(store=<the compile
             phase's store>)``: the packed constants equal the shipped
             tables', the greedy tokens the serve phase's, and the serve
-            phase's launch gates hold
+            phase's launch gates hold; a stand-in
+            until the engine takes ``table_store=``
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
@@ -2058,7 +2059,15 @@ def phase_workflow(torch, dev, card):
 
 
 def phase_serve_store(torch, dev, card, store):
-    """The serve phase through the compile phase's store."""
+    """The serve phase through the compile phase's store.
+
+    A stand-in until the serving engine takes ``table_store=``: the engine
+    builds its own bundle from the shipped JSON, and ``_serve`` then puts
+    the store's ``make_acts(store=...)`` bundle in its place.  Since
+    ``_check_store_tables`` has already required the store's packed
+    constants to equal the shipped ones, the token check can only pass;
+    what this phase shows is that the store's tables pack identically and
+    serve through the same kernels, not a store-fed engine."""
     if store is None:
         raise AssertionError("no store: the compile phase failed")
     return phase_serve(torch, dev, card, store)

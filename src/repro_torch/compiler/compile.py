@@ -36,10 +36,6 @@ from .memo import MemoizedSegmentEvaluator
 __all__ = ["CompilerSession", "compile_table", "resolve_defaults",
            "EFFORT_STAT_KEYS", "table_identity"]
 
-#: env var consulted when ``compile_table`` gets no explicit ``speculate``
-#: — the operator knob for TBW speculative probe batching (depth; 0 = off).
-SPECULATE_ENV = "REPRO_TORCH_TBW_SPECULATE"
-
 #: env var making every compile end with an exact bit-width certification
 #: (repro_torch.analysis.certify): a table any intermediate of which can exceed
 #: the kernel carrier is refused with the violating interval instead of
@@ -47,12 +43,6 @@ SPECULATE_ENV = "REPRO_TORCH_TBW_SPECULATE"
 #: ``--certify-grid`` CLI run certification explicitly and persist the
 #: certificates through the store.
 CERTIFY_ENV = "REPRO_TORCH_CERTIFY"
-
-
-def resolve_speculate(speculate: Optional[int]) -> int:
-    if speculate is not None:
-        return int(speculate)
-    return int(os.environ.get(SPECULATE_ENV, "0") or 0)
 
 
 def resolve_defaults(naf: "str | NAFSpec",
@@ -201,7 +191,7 @@ def compile_table(
     final_mode: str = "best",
     session: Optional[CompilerSession] = None,
     search_backend: "str | SearchBackend | None" = None,
-    speculate: Optional[int] = None,
+    speculate: int = 0,
 ) -> PPATable:
     """Run fit -> quantize -> segment for one NAF and pack the table.
 
@@ -214,14 +204,13 @@ def compile_table(
     ``search_backend`` / ``speculate`` are *execution* knobs — the search
     backend the candidate blocks run on (numpy golden / torch on the card;
     ``$REPRO_TORCH_SEARCH_BACKEND``) and the TBW speculative-probe depth
-    (``$REPRO_TORCH_TBW_SPECULATE``).  Neither changes the compiled table
+    (0 = off).  Neither changes the compiled table
     (:func:`table_identity` asserted in tests and benchmarks), so neither
     is part of the store address.
     """
     spec, interval, mae_t = resolve_defaults(naf, cfg, mae_t, interval)
     session = session or CompilerSession()
     backend = resolve_backend(search_backend)
-    speculate = resolve_speculate(speculate)
 
     # the backend is part of the *evaluator* key (clean per-backend
     # counters; results are backend-independent) but never of a store key.

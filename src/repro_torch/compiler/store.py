@@ -107,11 +107,11 @@ class CompileJob:
     #: the search backend and TBW speculation depth change how fast a job
     #: compiles, never what it compiles (asserted by the search-smoke CI
     #: tier), so two hosts running different backends still rendezvous on
-    #: one artifact per key.  None defers to $REPRO_TORCH_SEARCH_BACKEND /
-    #: $REPRO_TORCH_TBW_SPECULATE on the compiling host; the backend may
-    #: also be an instance (``TorchSearchBackend("cpu")``).
+    #: one artifact per key.  A backend of None defers to
+    #: $REPRO_TORCH_SEARCH_BACKEND on the compiling host; it may also be an
+    #: instance (``TorchSearchBackend("cpu")``).
     search_backend: "Optional[str | SearchBackend]" = None
-    speculate: Optional[int] = None
+    speculate: int = 0
 
     def resolved(self) -> "CompileJob":
         """Fill in the defaults the compiler would use (one shared

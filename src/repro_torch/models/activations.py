@@ -12,7 +12,9 @@ datapath (with straight-through gradients).
 
 The tables come from the shipped JSON (:mod:`repro_torch.tables`), or,
 given ``store=``, from a :class:`~repro_torch.compiler.TableStore`: each
-table is ``store.compile_or_load(...)`` (a hit, or a compile into it).
+table is ``store.compile_or_load(...)`` (a hit, or a compile into it).  A
+miss compiles on a ``TorchSearchBackend`` on the bundle's own device, so
+tables packed for the card are searched on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from ..core.datapath import FWLConfig
 from ..core.schemes import PPAScheme
+from ..core.searchspace import TorchSearchBackend
 from ..device import resolve_device
 from ..kernels.ops import (TableConsts, pack_table, ppa_act, ppa_gate_act,
                            ppa_softmax)
@@ -98,7 +101,9 @@ def _tc(naf: str, bits: int, device: torch.device, store=None
         ) -> TableConsts:
     cfg, scheme = (_CFG16, _SCHEME16) if bits == 16 else (_CFG8, _SCHEME8)
     table = (load_table(naf, bits) if store is None
-             else store.compile_or_load(naf, cfg, scheme))
+             else store.compile_or_load(
+                 naf, cfg, scheme,
+                 search_backend=TorchSearchBackend(device)))
     if table.cfg != cfg or table.scheme != scheme:
         raise ValueError(f"shipped table {naf}-{bits} is not the "
                          f"{cfg} / {scheme.tag} deployment point")

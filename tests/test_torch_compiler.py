@@ -253,3 +253,37 @@ def test_make_acts_from_store_equals_default_bundle(tmp_path, impl):
                                                else x)), name
     assert torch.equal(got.softmax(x), want.softmax(x))
     assert make_acts(impl, device="cpu", store=None) is want
+
+
+def test_make_acts_cold_store_searches_on_the_bundle_device(tmp_path,
+                                                            monkeypatch):
+    """A table missing from the store compiles on a torch backend on the
+    bundle's own device, never on the host's numpy default, and lands in
+    the store equal to the shipped JSON."""
+    import repro_torch.models.activations as acts
+
+    made = []
+
+    class Recording(TorchSearchBackend):
+        def __init__(self, device=None):
+            super().__init__(device)
+            made.append(self)
+
+    monkeypatch.delenv("REPRO_TORCH_SEARCH_BACKEND", raising=False)
+    monkeypatch.setattr(acts, "TorchSearchBackend", Recording)
+    store = TableStore(tmp_path)
+    for naf, cfg, scheme in ppa_table_jobs("ppa8"):
+        if naf != "exp2_frac":
+            store.put(CompileJob(naf, cfg, scheme), load_table(naf, 8))
+    bundle = make_acts("ppa8", device="cpu", store=store)
+    assert store.stats()["compiles"] == 1
+    ran = [b for b in made if b.counts["dispatches"]]
+    assert len(ran) == 1 and ran[0].device == torch.device("cpu")
+    naf, cfg, scheme = next(j for j in ppa_table_jobs("ppa8")
+                            if j[0] == "exp2_frac")
+    got = json.loads(store.compile_or_load(naf, cfg, scheme).to_json())
+    assert {k: got[k] for k in FIELDS} == json.loads(
+        table_path(naf, 8).read_text())
+    x = torch.linspace(-6, 6, 97)
+    assert torch.equal(bundle.softmax(x),
+                       make_acts("ppa8", device="cpu").softmax(x))
