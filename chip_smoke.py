@@ -125,11 +125,38 @@ Phases (any failure exits non-zero and prints no result line):
             packed on the card and run through ``ppa_apply``/``ppa_gate``
             on ``cuda_fused`` and ``cuda_int``, each equal to the plain
             version bit for bit
-23. serve_store  the serve phase with ``make_acts(store=<the compile
-            phase's store>)``: the packed constants equal the shipped
-            tables', the greedy tokens the serve phase's, and the serve
-            phase's launch gates hold; a stand-in
-            until the engine takes ``table_store=``
+23. sweep   the six 8-bit deployment tables (``ppa_table_jobs("ppa8")``)
+            compiled on ``TorchSearchBackend`` by ``run_shard`` on two
+            simulated hosts at once (each its own store and a pool of
+            spawned processes), merged, and by two spawned ``run_live``
+            workers on one shared directory: each key compiled once in
+            each mode by a spawned worker on the card (pid, backend and
+            dispatches logged), every table equal to a serial numpy
+            compile by ``table_identity`` and to the shipped ``*-8.json``;
+            the tables are then merged into the compile phase's store;
+            wall seconds, dispatches, candidate evaluations a second
+24. tune    ``autotune(smoke=True)`` on the card into a fresh store and its
+            verification; the smoke grid through a store with and one
+            without the tuned file: the same keys and tables (bytes equal
+            but for the effort counters a speculation depth moves); an
+            engine on the tuned store reports its config
+25. serve_store  the serve phase through ``ServeEngine(table_store=<the
+            compile phase's store>)``: the engine resolves its six tables
+            there (hits, no compile), they pack to the shipped constants,
+            the greedy tokens are the serve phase's and its launch gates
+            hold
+26. tenants one ``TenantFront`` on that store serving full-width
+            internlm2-1.8b (24 layers, bf16) as tenant a (ppa) and b
+            (ppa8), admitted warm, and c (ppa), admitted cold with
+            ``serve.tenant.build`` armed and no exact fallback, on one set
+            of parameters: 8 requests each to a and b interleaved, 2 to
+            c, ``max_active`` 8; a and b give the greedy tokens of lone
+            store-fed engines (a also the serve phase's), only c is
+            degraded and its requests end ``tenant_degraded``, every pin
+            of a and b survives, the fused and softmax kernels launch at
+            least layers x steps times in each of a's and b's engines, no
+            plain version runs; decode ms a step a tenant, warm admission
+            seconds, peak memory
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
@@ -139,7 +166,9 @@ every input shape at which
 that run launched the integer, fused or softmax kernel (the fused kernel's
 by dtype, table and gate too: ``launched_shapes``) is held to the plain
 version and timed beside its bound (``path_rows``), and its row in the
-kernels line carries those launches.  The last two lines are a JSON object with one entry per kernel, then ``{"ok": true,
+kernels line carries those launches (``launches_by_path`` adds the
+serve_store and tenants runs).  The last two lines are a JSON object
+with one entry per kernel, then ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -926,33 +955,41 @@ def _cut(cfg, layers: int):
         enc_layers=min(cfg.enc_layers, layers))
 
 
-def _serve(torch, dev, cfg, n_requests, max_new, lens, acts=None):
-    """Serve ``n_requests``, each with the extras the launcher draws
-    (``request_extras``: frame or patch embeddings from the seeded
-    generator, before each prompt); returns (engine, requests, step
-    times).  ``acts``: the engine's activation bundle in place of the one
-    it builds from ``cfg``."""
+def _requests(cfg, n_requests, max_new, lens, seed: int = 0):
+    """``n_requests`` requests of ``lens`` prompt tokens from the seeded
+    generator, each with the extras the launcher draws
+    (``request_extras``: frame or patch embeddings, before each
+    prompt)."""
     import numpy as np
-    from repro_torch.kernels import reset_counts
     from repro_torch.launch.serve import request_extras
-    from repro_torch.models import init_params, param_specs
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Request
 
-    params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
-                         device=dev)
-    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
-                      cache_len=SERVE_CACHE_LEN, device=dev)
-    del params
-    if acts is not None:
-        eng.acts = acts
-    eng.warmup(sorted(set(lens)))
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n_requests):
         extra = request_extras(cfg, rng) or None
         reqs.append(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab, lens[i]).astype(np.int32),
             max_new_tokens=max_new, extra=extra))
+    return reqs
+
+
+def _serve(torch, dev, cfg, n_requests, max_new, lens, table_store=None):
+    """Serve ``n_requests`` (``_requests``); returns (engine, requests,
+    step times).  ``table_store``: the engine's ``TableStore`` (None: the
+    shipped JSON)."""
+    from repro_torch.kernels import reset_counts
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.serve import ServeEngine
+
+    params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
+                         device=dev)
+    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
+                      cache_len=SERVE_CACHE_LEN, table_store=table_store,
+                      device=dev)
+    del params
+    eng.warmup(sorted(set(lens)))
+    reqs = _requests(cfg, n_requests, max_new, lens)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -977,25 +1014,32 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens, acts=None):
     return eng, reqs, steps, wall
 
 
+#: the serve phases' prompt lengths
+SERVE_LENS = [32, 128, 64, 96, 48, 128, 80, 112]
+
+
 def phase_serve(torch, dev, card, store=None):
-    """``store``: serve with the tables of this ``TableStore``
-    (``make_acts(store=...)``, the serve_store phase): its packed
-    constants must be the shipped tables' and its greedy tokens the serve
-    phase's."""
+    """``store``: serve through ``ServeEngine(table_store=store)`` (the
+    serve_store phase): the store's packed constants must be the shipped
+    tables' and its greedy tokens the serve phase's."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts
-    from repro_torch.models import make_acts
 
     tag = "serve" if store is None else "serve_store"
     cfg = get_config("internlm2-1.8b").replace(
         act_impl="ppa", compute_dtype="bfloat16")
-    acts = None
     if store is not None:
         _check_store_tables(torch, dev, store)
-        acts = make_acts(cfg.act_impl, cfg.act_backend, dev, store=store)
-    lens = [32, 128, 64, 96, 48, 128, 80, 112][:SERVE_REQUESTS]
+        before = store.stats()
+    lens = SERVE_LENS[:SERVE_REQUESTS]
     eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
-                                    SERVE_NEW, lens, acts)
+                                    SERVE_NEW, lens, store)
+    if store is not None:
+        st = store.stats()
+        hits = sum(st[k] - before[k] for k in ("hits_mem", "hits_disk"))
+        if hits < 6 or st["compiles"] != before["compiles"]:
+            raise AssertionError(f"the engine did not resolve its six "
+                                 f"tables through the store: {st}")
     TOKENS[tag] = [list(r.output) for r in reqs]
     if store is not None and TOKENS[tag] != TOKENS.get("serve"):
         raise AssertionError("the store-served greedy tokens differ from "
@@ -1034,8 +1078,10 @@ def phase_serve(torch, dev, card, store=None):
         f"{counts['softmax_ppa']['launches']} (layers x steps = {need}); "
         f"by shape {by_shape}; plain calls {plain}")
     if store is not None:
-        log(f"[{tag}] the store's 6 tables pack to the shipped constants; "
-            f"greedy tokens equal to the serve phase's ({tokens} tokens)")
+        log(f"[{tag}] ServeEngine(table_store=...) resolved its 6 tables "
+            f"through the compile phase's store ({hits} hits, no compile); "
+            f"they pack to the shipped constants; greedy tokens equal to "
+            f"the serve phase's ({tokens} tokens); tuned {eng.tuned}")
         return out, {}
     rows = path_rows(torch, dev, "serve", by_shape)
     log_rows("serve", rows)
@@ -2059,15 +2105,10 @@ def phase_workflow(torch, dev, card):
 
 
 def phase_serve_store(torch, dev, card, store):
-    """The serve phase through the compile phase's store.
-
-    A stand-in until the serving engine takes ``table_store=``: the engine
-    builds its own bundle from the shipped JSON, and ``_serve`` then puts
-    the store's ``make_acts(store=...)`` bundle in its place.  Since
-    ``_check_store_tables`` has already required the store's packed
-    constants to equal the shipped ones, the token check can only pass;
-    what this phase shows is that the store's tables pack identically and
-    serve through the same kernels, not a store-fed engine."""
+    """The serve phase through ``ServeEngine(table_store=<the compile
+    phase's store>)``: the engine resolves its six tables through the
+    store (hits, no compile), they pack to the shipped constants, and the
+    greedy tokens and launch gates are the serve phase's."""
     if store is None:
         raise AssertionError("no store: the compile phase failed")
     return phase_serve(torch, dev, card, store)
@@ -2092,6 +2133,370 @@ def _check_store_tables(torch, dev, store):
                 for k in ("starts", "coefs", "idx_lut", "val_lut")):
             raise AssertionError(f"{naf}-16: the store's packed constants "
                                  "differ from the shipped table's")
+
+
+#: the sweep phase: simulated hosts and spawned compile processes a host
+#: (more processes share the card's time slices: three a host took 57.8 s
+#: against two's 61.5 s, at 2.6-5.2 ms a dispatch against 1.8-3.3;
+#: scripts/torch_sweep_study.py)
+SWEEP_HOSTS = 2
+SWEEP_PROCESSES = 2
+#: live workers (spawned, one compile at a time each)
+SWEEP_LIVE_WORKERS = 2
+
+
+def _sweep_check(tag, reports, st, jobs, host, shipped, wall):
+    """Every key compiled exactly once over ``reports``, by spawned workers
+    on the card; each table in ``st`` equal to the serial compile
+    (``host``) by ``table_identity`` and to the shipped 8-bit JSON on its
+    fields.  Returns the log line."""
+    import os
+    from repro_torch.compiler import table_identity
+
+    compiled = sorted(k for r in reports for k in r.compiled)
+    if compiled != sorted(j.key() for j in jobs):
+        raise AssertionError(f"{tag}: keys compiled {compiled}, not each "
+                             "key once")
+    if any(r.deferred for r in reports):
+        raise AssertionError(f"{tag}: deferred keys")
+    workers = [w for r in reports for w in r.compiled_by.values()]
+    if len(workers) != len(jobs) or any(
+            w["backend"] != "torch@cuda" or w["pid"] == os.getpid()
+            or w["dispatches"] <= 0 for w in workers):
+        raise AssertionError(f"{tag}: not every key was compiled on the "
+                             f"card in a spawned worker: {workers}")
+    evals = 0
+    for job in jobs:
+        tab = st.lookup(job)
+        if tab is None or table_identity(tab) != table_identity(
+                host[job.naf][0]):
+            raise AssertionError(f"{tag}: {job.naf}-8 is not the serial "
+                                 "compile's table")
+        got = json.loads(tab.to_json())
+        bad = [k for k in TABLE_FIELDS if got[k] != shipped[job.naf][k]]
+        if bad:
+            raise AssertionError(f"{tag}: {job.naf}-8 differs from the "
+                                 f"shipped JSON in {bad}")
+        evals += int(tab.stats["candidate_evals"])
+    by_pid = collections.defaultdict(list)
+    for r in reports:
+        for key, w in r.compiled_by.items():
+            naf = next(j.naf for j in jobs if j.key() == key)
+            by_pid[(r.owner, w["pid"])].append(
+                f"{naf}({w['dispatches']})")
+    dispatches = sum(w["dispatches"] for w in workers)
+    return (f"[sweep] {tag}: {len(jobs)} keys each compiled once in "
+            f"{wall:.3f} s wall, {dispatches} dispatches, {evals} candidate "
+            f"evaluations = {evals / wall:,.0f}/s; workers (owner, pid): "
+            + "; ".join(f"{o} pid {pid} on torch@cuda: {', '.join(v)}"
+                        for (o, pid), v in sorted(by_pid.items())))
+
+
+def phase_sweep(torch, dev, card, store):
+    """The six 8-bit deployment tables (``ppa_table_jobs("ppa8")``)
+    compiled on ``TorchSearchBackend`` twice: by ``run_shard`` on
+    SWEEP_HOSTS simulated hosts at once (threads, each with its own store
+    and a pool of SWEEP_PROCESSES spawned processes), merged; and by
+    SWEEP_LIVE_WORKERS spawned ``run_live`` workers on one shared
+    directory.  Each key compiled once in each mode, by spawned workers on
+    the card; every table equal to a serial compile (the numpy backend,
+    one spawned process a table) by ``table_identity`` and to the shipped
+    ``*-8.json``; then ``merge_shards`` brings them into the compile
+    phase's store."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.compiler import (CompileJob, TableStore, merge_shards,
+                                      run_live_workers, run_shard)
+    from repro_torch.models import ppa_table_jobs
+    from repro_torch.tables import table_path
+
+    if store is None:
+        raise AssertionError("no store: the compile phase failed")
+    triples = ppa_table_jobs("ppa8")
+    jobs = [CompileJob(naf, cfg, scheme, search_backend="torch")
+            for naf, cfg, scheme in triples]
+    shipped = {naf: json.loads(table_path(naf, 8).read_text())
+               for naf, _, _ in triples}
+    root = STORE_DIR.parent / "chip_smoke_sweep"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        host = _numpy_compiles(triples)
+        log(f"[sweep] serial reference: the six 8-bit tables on the numpy "
+            f"backend, one spawned process a table, in "
+            f"{time.perf_counter() - t0:.3f} s wall ("
+            + ", ".join(f"{naf} {sec:.3f} s" for naf, (_, sec)
+                        in host.items()) + ")")
+
+        def shard(i):
+            return run_shard(jobs, hosts=SWEEP_HOSTS, host_id=i,
+                             store=TableStore(root / f"host{i}"),
+                             processes=SWEEP_PROCESSES,
+                             owner=f"card-host{i}")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SWEEP_HOSTS) as ex:
+            reports = list(ex.map(shard, range(SWEEP_HOSTS)))
+        wall = time.perf_counter() - t0
+        merged = TableStore(root / "merged")
+        mstats = merge_shards(merged, [root / f"host{i}"
+                                       for i in range(SWEEP_HOSTS)])
+        log(_sweep_check(f"run_shard x {SWEEP_HOSTS} hosts + merge", reports,
+                         merged, jobs, host, shipped, wall)
+            + f"; merge {mstats}; card {card}")
+
+        t0 = time.perf_counter()
+        live = run_live_workers(jobs, root / "live",
+                                workers=SWEEP_LIVE_WORKERS, processes=1,
+                                claim_ttl_s=900.0)
+        wall = time.perf_counter() - t0
+        if list((root / "live").glob("*.claim")):
+            raise AssertionError("run_live left claims behind")
+        log(_sweep_check(f"run_live x {SWEEP_LIVE_WORKERS} spawned workers",
+                         live, TableStore(root / "live"), jobs, host,
+                         shipped, wall) + f"; card {card}")
+
+        stats = merge_shards(store, [root / "merged"])
+        if any(store.lookup(j) is None for j in jobs):
+            raise AssertionError("the merge left an 8-bit table out of the "
+                                 "compile phase's store")
+        log(f"[sweep] merged into the compile phase's store: {stats}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tune(torch, dev, card):
+    """``autotune(smoke=True)`` on the card into a fresh store, then its
+    verification (the file round-trips, ``compile_or_load`` picks it up,
+    the tuned table is the untuned one); the smoke grid compiled through a
+    store with the tuned file and one without gives the same keys and
+    tables, byte for byte but for the effort counters a speculation depth
+    moves; an engine given the tuned store reports its config."""
+    import shutil
+    from repro_torch.compiler import EFFORT_STAT_KEYS, TableStore
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import TorchSearchBackend
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tune import autotune, config
+    from repro_torch.tune.autotune import _SCHEME, _SMOKE_GRID, verify
+
+    root = STORE_DIR.parent / "chip_smoke_tune"
+    shutil.rmtree(root, ignore_errors=True)
+    floors = {k: getattr(TorchSearchBackend, k)
+              for k in ("K_FLOOR", "G_FLOOR", "BATCH_ELEMS")}
+    try:
+        t0 = time.perf_counter()
+        cfg = autotune(root / "tuned", smoke=True, log=log)
+        verify(root / "tuned", cfg, log=log)
+        sec = time.perf_counter() - t0
+        tuned, plain = TableStore(root / "tuned"), TableStore(root / "plain")
+        for naf, fcfg in _SMOKE_GRID:
+            tuned.compile_or_load(naf, fcfg, _SCHEME)
+            plain.compile_or_load(naf, fcfg, _SCHEME)
+        names = sorted(p.name for p in (root / "tuned").glob("*.json"))
+        if names != sorted(p.name for p in (root / "plain").glob("*.json")):
+            raise AssertionError("the tuned store's keys differ")
+        moved = set()
+        for n in names:
+            a, b = (json.loads((root / d / n).read_text())
+                    for d in ("tuned", "plain"))
+            sa, sb = a.pop("stats"), b.pop("stats")
+            diff = {k for k in set(sa) | set(sb) if sa.get(k) != sb.get(k)}
+            del a["sha"], b["sha"]
+            if a != b or not diff <= EFFORT_STAT_KEYS or (
+                    diff and not cfg.speculate):
+                raise AssertionError(f"{n}: the tuned compile moved the "
+                                     f"artifact ({sorted(diff)})")
+            moved |= diff
+        est = TableStore(root / "tuned")
+        est.merge(STORE_DIR)
+        mcfg = get_smoke_config("internlm2-1.8b").replace(act_impl="ppa")
+        eng = ServeEngine(mcfg, init_params(param_specs(mcfg), 0,
+                                            device=dev),
+                          n_slots=2, cache_len=64, table_store=est,
+                          device=dev)
+        if eng.tuned != cfg or TorchSearchBackend.K_FLOOR != cfg.k_floor:
+            raise AssertionError(f"the engine reports tuned {eng.tuned}, "
+                                 f"not {cfg}")
+        log(f"[tune] autotune(smoke) + verify in {sec:.3f} s: "
+            f"{cfg.summary()}; scores {cfg.score}; the smoke grid through "
+            f"the tuned and untuned stores: same {len(names)} keys, "
+            + ("the bytes equal" if not moved else
+               f"equal but for the effort counters {sorted(moved)}")
+            + f"; an engine on the tuned store reports it; card {card}")
+    finally:
+        for k, v in floors.items():
+            setattr(TorchSearchBackend, k, v)
+        config._ACTIVE = None
+        shutil.rmtree(root, ignore_errors=True)
+
+
+#: the tenants phase: requests a healthy tenant, and to the armed one
+TENANT_REQUESTS = 8
+TENANT_ARMED_REQUESTS = 2
+TENANT_MAX_ACTIVE = 8
+
+
+def _count_steps(torch, eng, rec):
+    """Wrap ``eng.step`` to record (seconds, requests admitted, fused and
+    softmax launches) of each step."""
+    from repro_torch.kernels import read_counts
+    orig = eng.step
+
+    def step():
+        c0 = read_counts()
+        q0 = len(eng.queue)
+        ts = time.perf_counter()
+        n = orig()
+        torch.cuda.synchronize()
+        c1 = read_counts()
+        rec.append((time.perf_counter() - ts, q0 - len(eng.queue),
+                    {k: c1[k]["launches"] - c0[k]["launches"]
+                     for k in ("ppa_fused", "softmax_ppa")}))
+        return n
+    eng.step = step
+
+
+def phase_tenants(torch, dev, card, store):
+    """One ``TenantFront`` on the compile phase's store (16- and 8-bit
+    tables) serving full-width internlm2-1.8b (24 layers, bf16) as three
+    tenants on one set of parameters: ``a`` (ppa) and ``b`` (ppa8)
+    admitted warm, ``c`` (ppa) admitted cold with ``serve.tenant.build``
+    armed and no exact fallback.  TENANT_REQUESTS each to a and b,
+    interleaved (the serve phase's prompts to a, another draw to b), and
+    TENANT_ARMED_REQUESTS to c, under ``max_active`` TENANT_MAX_ACTIVE.
+    a and b give the greedy tokens of a lone store-fed engine of their
+    impl on the same requests (a also the serve phase's); c alone is
+    degraded, its requests end ``tenant_degraded``, and every pin of a and
+    b survives; the fused and softmax kernels launch at least layers x
+    steps times in each of a's and b's engines, and no plain version
+    runs."""
+    from repro_torch import faults
+    from repro_torch.compiler import CompileJob, TableStore
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import init_params, param_specs, ppa_table_jobs
+    from repro_torch.serve import ServeEngine, TenantFront, TenantSpec
+
+    if store is None:
+        raise AssertionError("no store: the compile phase failed")
+    base = get_config("internlm2-1.8b").replace(compute_dtype="bfloat16")
+    cfgs = {"a": base.replace(act_impl="ppa"),
+            "b": base.replace(act_impl="ppa8"),
+            "c": base.replace(act_impl="ppa")}
+    lens = SERVE_LENS[:TENANT_REQUESTS]
+    reqs = {"a": _requests(cfgs["a"], TENANT_REQUESTS, SERVE_NEW, lens, 0),
+            "b": _requests(cfgs["b"], TENANT_REQUESTS, SERVE_NEW, lens, 1),
+            "c": _requests(cfgs["c"], TENANT_ARMED_REQUESTS, SERVE_NEW,
+                           lens, 2)}
+    params = init_params(param_specs(base), 0, dtype=torch.bfloat16,
+                         device=dev)
+    faults.reset()
+    front = TenantFront(store, max_active=TENANT_MAX_ACTIVE, device=dev)
+    admit = {}
+    for name in ("a", "b"):
+        rep = front.add_tenant(TenantSpec(
+            name, cfgs[name], params, n_slots=SERVE_SLOTS,
+            cache_len=SERVE_CACHE_LEN, warm_prompt_lens=sorted(set(lens))))
+        if rep["degraded"] or rep["tables_pinned"] != 6:
+            raise AssertionError(f"tenant {name}: {rep}")
+        admit[name] = rep["warmup_s"]
+    pins = dict(store._pinned)
+    want_pins = {CompileJob(*j).key() for impl in ("ppa", "ppa8")
+                 for j in ppa_table_jobs(impl)}
+    if set(pins) != want_pins:
+        raise AssertionError(f"pins {pins} are not a's and b's tables")
+    faults.arm("serve.tenant.build", "once")
+    front.add_tenant(TenantSpec("c", cfgs["c"], params, n_slots=SERVE_SLOTS,
+                                cache_len=SERVE_CACHE_LEN), warm=False)
+    recs = {"a": [], "b": []}
+    for name, rec in recs.items():
+        _count_steps(torch, front.engines[name], rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    for i in range(TENANT_REQUESTS):
+        for name in ("a", "b"):
+            front.submit(name, reqs[name][i])
+    for r in reqs["c"]:
+        front.submit("c", r)
+    t0 = time.perf_counter()
+    front.run_until_drained()
+    wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated(dev)
+    counts = read_counts()
+    faults.reset()
+    if set(front.degraded) != {"c"} or front.degraded["c"].startswith(
+            "fallback"):
+        raise AssertionError(f"degraded tenants {front.degraded}: only c, "
+                             "without a fallback, was armed")
+    if not all(r.done and r.rejected == "tenant_degraded"
+               for r in reqs["c"]):
+        raise AssertionError("c's requests did not end tenant_degraded")
+    if dict(store._pinned) != pins:
+        raise AssertionError("c's degradation moved a's or b's pins")
+    plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran in the front: {plain}")
+    tokens = {n: [list(r.output) for r in reqs[n]] for n in ("a", "b")}
+    for name in ("a", "b"):
+        rec = recs[name]
+        for k in ("ppa_fused", "softmax_ppa"):
+            got = sum(c[k] for _, _, c in rec)
+            if got < base.n_layers * len(rec):
+                raise AssertionError(f"tenant {name}: {k} launched {got} "
+                                     f"times < layers x steps = "
+                                     f"{base.n_layers * len(rec)}")
+        if not all(r.done and len(r.output) == SERVE_NEW
+                   for r in reqs[name]):
+            raise AssertionError(f"tenant {name}: unfinished requests")
+    if tokens["a"] != TOKENS.get("serve"):
+        raise AssertionError("tenant a's greedy tokens are not the serve "
+                             "phase's")
+    lone_s = {}
+    for name in ("a", "b"):
+        # a cold build: a new store object over the same directory, so the
+        # engine's tables come from the disk tier and are packed anew
+        t1 = time.perf_counter()
+        eng = ServeEngine(cfgs[name], params, n_slots=SERVE_SLOTS,
+                          cache_len=SERVE_CACHE_LEN,
+                          table_store=TableStore(store.root), device=dev)
+        torch.cuda.synchronize()
+        lone_s[name] = time.perf_counter() - t1
+        lone = _requests(cfgs[name], TENANT_REQUESTS, SERVE_NEW, lens,
+                         0 if name == "a" else 1)
+        for r in lone:
+            eng.submit(r)
+        eng.run_until_drained()
+        if [list(r.output) for r in lone] != tokens[name]:
+            raise AssertionError(f"tenant {name}'s greedy tokens are not a "
+                                 "lone store-fed engine's")
+        del eng
+    n_tok = sum(len(r.output) for n in ("a", "b") for r in reqs[n])
+    for name, rec in recs.items():
+        decode = sorted(t for t, adm, _ in rec if adm == 0)
+        launches = {k: sum(c[k] for _, _, c in rec)
+                    for k in ("ppa_fused", "softmax_ppa")}
+        log(f"[tenants] {name} ({cfgs[name].act_impl}): decode "
+            f"{decode[len(decode) // 2] * 1e3:.2f} ms/step (median of "
+            f"{len(decode)}, the other tenant's engine stepping between), "
+            f"{len(rec)} engine steps, launches {launches} (layers x "
+            f"steps = {base.n_layers * len(rec)}); warm admission "
+            f"{admit[name]:.3f} s (pins and warm-up runs); a lone engine "
+            f"built cold from the store's disk tier in {lone_s[name]:.3f} "
+            f"s gives the same tokens; card {card}")
+    log(f"[tenants] internlm2-1.8b 24L bf16 x 3 tenants on one store: "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; c's "
+        f"cold build raised at the armed failpoint in the first front step "
+        f"and its {len(reqs['c'])} requests ended tenant_degraded "
+        f"({front.degraded['c']}); pins of a and b kept ({len(pins)} "
+        f"keys); max_memory_allocated {mem / 2**30:.2f} GiB; card {card}")
+    out = {k: {"total": counts[k]["launches"]}
+           for k in ("ppa_fused", "softmax_ppa")}
+    del front, params
+    _free(torch)
+    return out, {}
 
 
 def main() -> int:
@@ -2159,8 +2564,12 @@ def main() -> int:
         _free(torch)
         store = run("compile", phase_compile, torch, dev, card)
         run("workflow", phase_workflow, torch, dev, card)
+        run("sweep", phase_sweep, torch, dev, card, store)
+        run("tune", phase_tune, torch, dev, card)
         paths["serve_store"] = run("serve_store", phase_serve_store, torch,
                                    dev, card, store)
+        paths["tenants"] = run("tenants", phase_tenants, torch, dev, card,
+                               store)
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")

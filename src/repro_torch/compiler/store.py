@@ -27,7 +27,8 @@ from typing import ClassVar, Dict, List, Optional, Tuple
 
 from ..core.datapath import FWLConfig
 from ..core.schemes import PPAScheme, PPATable
-from ..core.searchspace import SearchBackend
+from ..core.searchspace import (BACKEND_ENV, SearchBackend,
+                                TorchSearchBackend)
 from ..faults import failpoint
 
 from .compile import CompilerSession, compile_table, resolve_defaults
@@ -107,11 +108,13 @@ class CompileJob:
     #: the search backend and TBW speculation depth change how fast a job
     #: compiles, never what it compiles (asserted by the search-smoke CI
     #: tier), so two hosts running different backends still rendezvous on
-    #: one artifact per key.  A backend of None defers to
-    #: $REPRO_TORCH_SEARCH_BACKEND on the compiling host; it may also be an
-    #: instance (``TorchSearchBackend("cpu")``).
+    #: one artifact per key.  A backend of None defers to a tuned config
+    #: (``TableStore._apply_tuned``), then to $REPRO_TORCH_SEARCH_BACKEND on
+    #: the compiling host; it may also be an instance
+    #: (``TorchSearchBackend("cpu")``).  A speculation depth of None is
+    #: the tuned config's, else 0.
     search_backend: "Optional[str | SearchBackend]" = None
-    speculate: int = 0
+    speculate: Optional[int] = None
 
     def resolved(self) -> "CompileJob":
         """Fill in the defaults the compiler would use (one shared
@@ -143,7 +146,7 @@ class CompileJob:
                              tseg=job.tseg, final_mode=job.final_mode,
                              session=session,
                              search_backend=job.search_backend,
-                             speculate=job.speculate)
+                             speculate=job.speculate or 0)
 
 
 class TableStore:
@@ -186,6 +189,10 @@ class TableStore:
         self.misses = 0
         self.evictions = 0
         self.compiles = 0       # actual compiler runs charged to this store
+        #: key -> {"pid", "backend", "dispatches", "seconds"} of each
+        #: compile_batch job: the worker process, the search backend it
+        #: compiled on, that backend's dispatch groups and the wall time
+        self.compiled_by: Dict[str, Dict[str, object]] = {}
         self.tuned_applied = 0  # compiles that picked up a tuned config
         self.certs_checked = 0  # certificate staleness checks performed
         self.certs_stale = 0    # stale certificates retired on load
@@ -500,11 +507,40 @@ class TableStore:
         return tab
 
     def _apply_tuned(self, job: CompileJob) -> CompileJob:
-        """The hook where a tuned config would fill the job's execution
-        knobs (search backend, speculation depth).  The port has no
-        tuner yet, so the job is compiled as it is: its knobs come from
-        the caller or the environment."""
-        return job
+        """Fill the job's *execution* knobs from the tuned config
+        persisted next to this store (``<root>/tune/``), when one exists
+        for this device.  Only fields the caller left None are filled,
+        and ``$REPRO_TORCH_SEARCH_BACKEND`` still wins over the tuned file
+        (see :mod:`repro_torch.tune.config` for the precedence order).
+        The key was computed before this call and excludes these fields,
+        so tuning can never move an artifact's address, and the compiled
+        table is the untuned compile's (``table_identity``; a speculation
+        depth moves only the effort counters in its stats)."""
+        if not self.persist:
+            return job
+        try:
+            from ..tune import activate, resolve_tuned
+            tuned = resolve_tuned(self.root)
+        except Exception:
+            return job
+        if tuned is None:
+            return job
+        activate(tuned)     # the torch backend's floors (idempotent)
+        updates: Dict[str, object] = {}
+        if job.search_backend is None and not os.environ.get(BACKEND_ENV):
+            if tuned.search_backend == "torch":
+                # a config measured on the card scans there; one measured
+                # on the host (key cpu/host) scans on the host's torch
+                updates["search_backend"] = TorchSearchBackend(
+                    None if tuned.device.startswith("cuda/") else "cpu")
+            elif tuned.search_backend:
+                updates["search_backend"] = tuned.search_backend
+        if job.speculate is None:
+            updates["speculate"] = int(tuned.speculate)
+        if not updates:
+            return job
+        self.tuned_applied += 1
+        return dataclasses.replace(job, **updates)
 
     # -- claim-file leasing ----------------------------------------------------
     # Hosts racing on one key (a shared store directory, or a takeover of a
@@ -660,7 +696,7 @@ class TableStore:
         """Import a foreign store directory (a sweep shard's rendezvous).
 
         Shard manifests (``*.manifest``, written by
-        a sweep's shard run, the JAX package's ``compiler/sweep.py``) are
+        :func:`repro_torch.compiler.sweep.run_shard` and ``run_live``) are
         reconciled first: a
         manifest names the keys its shard produced and the
         ``CompileJob.VERSION`` it compiled under — entries from a different

@@ -265,8 +265,17 @@ class TorchSearchBackend(SearchBackend):
     #: scans split into a few.
     BATCH_ELEMS = 1 << 23
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, *, k_floor: Optional[int] = None,
+                 g_floor: Optional[int] = None,
+                 batch_elems: Optional[int] = None):
+        """``k_floor``/``g_floor``/``batch_elems``: this instance's own
+        padding floors and dispatch budget (None: the class's, which a
+        tuned config sets)."""
         self.device = resolve_device(device)
+        for name, v in (("K_FLOOR", k_floor), ("G_FLOOR", g_floor),
+                        ("BATCH_ELEMS", batch_elems)):
+            if v is not None:
+                setattr(self, name, int(v))
         self.counts: Dict[str, int] = {"dispatches": 0, "blocks": 0,
                                        "lanes": 0}
 

@@ -33,7 +33,10 @@ sequences free their slot.
   (``coalesce=False``) one.
 
 The PPA activation tables come from the shipped JSON (``repro_torch.
-tables``); on the card the activations run through the CUDA kernels.
+tables``), or, given ``table_store=``, resolve through that
+``TableStore`` (a table it lacks compiles on the engine's device, and a
+tuned config persisted next to it is activated first); on the card the
+activations run through the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..faults import failpoint
 from ..models import (ModelCfg, decode_step, init_cache, make_acts, prefill,
                       prepare_params)
 from ..models.transformer import RECURRENT_KINDS, ring_len
@@ -74,6 +78,7 @@ class Request:
     temperature: float = 0.0
     extra: Optional[dict] = None       # enc_feats / vision_embeds
     deadline_s: Optional[float] = None  # wall budget from submit()
+    tenant: Optional[str] = None       # set by the multi-tenant front
     # filled by the engine:
     output: Optional[List[int]] = None
     done: bool = False
@@ -87,18 +92,28 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ModelCfg, params, *, n_slots: int = 4,
                  cache_len: int = 256, rng_seed: int = 0,
-                 act_backend: Optional[str] = None, coalesce: bool = True,
-                 max_queue: Optional[int] = None, device=None):
+                 table_store=None, act_backend: Optional[str] = None,
+                 coalesce: bool = True, max_queue: Optional[int] = None,
+                 device=None):
         """``params``: the parameter tree (``init_params`` or
         ``params_from_jax``); it is cast to ``cfg.compute_dtype`` and moved
-        to ``device`` (None: the card) once, here.  ``act_backend``
-        overrides ``cfg.act_backend``."""
+        to ``device`` (None: the card) once, here.  ``table_store``: a
+        ``TableStore`` the PPA tables resolve through (None: the shipped
+        JSON); the tuned config persisted next to it, if any, is activated
+        first and kept as ``tuned``.  ``act_backend`` overrides
+        ``cfg.act_backend``."""
         self.device = resolve_device(device)
         if act_backend is not None and act_backend != cfg.act_backend:
             cfg = dataclasses.replace(cfg, act_backend=act_backend)
         self.cfg = cfg
         self.params = prepare_params(params, cfg, self.device)
-        self.acts = make_acts(cfg.act_impl, cfg.act_backend, self.device)
+        self.table_store = table_store
+        self.tuned = None
+        if table_store is not None:
+            from ..tune import activate_for_store
+            self.tuned = activate_for_store(table_store)
+        self.acts = make_acts(cfg.act_impl, cfg.act_backend, self.device,
+                              store=table_store)
         self.n_slots = n_slots
         self.cache_len = cache_len
         self.cache = init_cache(cfg, n_slots, cache_len, device=self.device)
@@ -295,6 +310,7 @@ class ServeEngine:
     def step(self) -> int:
         """Admit pending requests, decode one token for every active slot.
         Returns the number of active sequences stepped."""
+        failpoint("serve.decode.step")
         if self._has_deadlines:
             self._reap_deadlines()
         self._admit()

@@ -565,3 +565,75 @@ def test_torch_search_backend_on_card():
                     x[3:3 + w], f[3:3 + w], cfg, 0.5 ** 8, mode=mode)
                     for b in (host, card)]
                 _fits_equal(*fits)
+
+
+@pytest.mark.gpu
+def test_run_shard_on_card_equals_numpy(tmp_path):
+    """A two-host ``run_shard`` sweep of a small grid scanned on the card
+    (``TorchSearchBackend``), merged, equals a serial numpy compile by
+    ``table_identity``, each key compiled once; the batch pool's workers
+    are spawned and compiled on the card."""
+    from repro_torch.compiler import (CompileJob, TableStore, compile_batch,
+                                      merge_shards, run_shard,
+                                      table_identity)
+    from repro_torch.core import FWLConfig, PPAScheme
+    _card()
+    cfg = FWLConfig(7, 7, (7,), (7,), 7)
+    jobs = [CompileJob(naf, cfg, PPAScheme(1, None, q),
+                       search_backend="torch")
+            for naf in ("sigmoid", "tanh", "exp2_frac")
+            for q in ("fqa", "qpa")]
+    serial = TableStore(tmp_path / "numpy")
+    want = compile_batch([CompileJob(j.naf, j.cfg, j.scheme,
+                                     search_backend="numpy") for j in jobs],
+                         store=serial, processes=1)
+    reports = [run_shard(jobs, hosts=2, host_id=i,
+                         store=TableStore(tmp_path / f"host{i}"),
+                         processes=2) for i in range(2)]
+    assert sorted(k for r in reports for k in r.compiled) == sorted(
+        j.key() for j in jobs)
+    workers = [w for r in reports for w in r.compiled_by.values()]
+    assert {w["backend"] for w in workers} == {"torch@cuda"}
+    assert all(w["dispatches"] > 0 for w in workers)
+    merged = TableStore(tmp_path / "merged")
+    merge_shards(merged, [tmp_path / "host0", tmp_path / "host1"])
+    for job, w in zip(jobs, want):
+        assert table_identity(merged.lookup(job)) == table_identity(w)
+
+
+@pytest.mark.gpu
+def test_store_fed_engine_launches_kernels_on_card():
+    """``ServeEngine(table_store=...)`` on the card, the smoke internlm2
+    config with its 16-bit tables from an in-memory store: the greedy
+    tokens of the shipped-JSON engine, the fused and softmax kernels at
+    least layers x engine steps times, no plain version."""
+    from repro_torch.compiler import CompileJob, TableStore
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, param_specs, ppa_table_jobs
+    from repro_torch.serve import Request, ServeEngine
+    dev = _card()
+    cfg = get_smoke_config("internlm2-1.8b").replace(act_impl="ppa")
+    store = TableStore(persist=False)
+    for naf, fcfg, scheme in ppa_table_jobs("ppa"):
+        store.put(CompileJob(naf, fcfg, scheme), load_table(naf, 16))
+    params = init_params(param_specs(cfg), 0, device=dev)
+    outs = []
+    for table_store in (None, store):
+        eng = ServeEngine(cfg, params, n_slots=4, cache_len=64,
+                          table_store=table_store, device=dev)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+            np.int32), max_new_tokens=6) for i, n in enumerate((9, 5, 12))]
+        K.reset_counts()
+        for r in reqs:
+            eng.submit(r)
+        steps = 0
+        while eng.step() or eng.queue:
+            steps += 1
+        c = K.read_counts()
+        for k in ("ppa_fused", "softmax_ppa"):
+            assert c[k]["launches"] >= cfg.n_layers * steps, k
+        assert not any(v.get("plain", 0) for v in c.values())
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert store.stats()["compiles"] == 0

@@ -59,6 +59,12 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.compiler.batch", "repro_torch.faults.registry",
             "repro_torch.analysis.intervals",
             "repro_torch.analysis.certify"} <= set(mods)
+    # multi-tenant serving from one store: the tuner, the sweep, the FWL
+    # flow and the cost model
+    assert {"repro_torch.tune.config", "repro_torch.tune.autotune",
+            "repro_torch.compiler.sweep", "repro_torch.serve.tenants",
+            "repro_torch.core.fwl_search",
+            "repro_torch.core.hwcost"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

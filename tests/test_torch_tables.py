@@ -1,9 +1,10 @@
 """The PPA tables the PyTorch port ships stay true to the FQA compiler.
 
 * every committed ``src/repro_torch/tables/<naf>-<bits>.json`` equals the
-  reference compiler's output on the reference's default store: the 12
-  jobs go through one ``repro.compiler.compile_batch`` call over a few
-  processes (a module fixture);
+  reference compiler's output: the 12 jobs go through one
+  ``repro.compiler.compile_batch`` call over a few processes into an empty
+  store of the test's own (a module fixture), so they are compiled fresh
+  and never read from the committed ``artifacts/ppa_tables/``;
 * the port's numpy golden model and ``pack_table`` (starts, coefs, lo, hi,
   idx_lut, val_lut) equal the reference's over the whole input grid;
 * the port's exhaustive int32 guard agrees with the reference certifier
@@ -21,6 +22,7 @@ Run as a script, this file rewrites the JSONs from the reference compiler:
 
 import dataclasses
 import json
+import tempfile
 
 import numpy as np
 import pytest
@@ -30,7 +32,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402,F401  (the reference side runs on the CPU)
 
 from repro.analysis.certify import certify_table  # noqa: E402
-from repro.compiler import CompileJob, compile_batch  # noqa: E402
+from repro.compiler import CompileJob, TableStore, compile_batch  # noqa: E402
 from repro.core import PPATable as RefPPATable  # noqa: E402
 from repro.core import eval_table_int as ref_eval_table_int  # noqa: E402
 from repro.kernels import pack_table as ref_pack_table  # noqa: E402
@@ -63,19 +65,19 @@ def _ref_job(naf, bits):
     return next(j for j in ref_table_jobs(impl) if j[0] == naf)
 
 
-def _compile_all():
+def _compile_all(root):
     """{(naf, bits): PPATable} from the reference compiler, one batch on
-    the reference's default store.  The widest input intervals go first:
+    an empty store at ``root``.  The widest input intervals go first:
     their compiles take longest, so the batch ends soon after them."""
     order = sorted(JOBS, key=lambda j: -np.diff(load_table(*j).interval)[0])
     jobs = [CompileJob(*_ref_job(naf, bits)) for naf, bits in order]
-    return dict(zip(order, compile_batch(jobs,
+    return dict(zip(order, compile_batch(jobs, store=TableStore(root),
                                          processes=COMPILE_PROCESSES)))
 
 
 @pytest.fixture(scope="module")
-def compiled():
-    return _compile_all()
+def compiled(tmp_path_factory):
+    return _compile_all(tmp_path_factory.mktemp("ref_store"))
 
 
 def _ref_table(naf, bits):
@@ -175,10 +177,11 @@ def test_int32_guard_rejects_overflowing_table():
 
 def main():
     """Rewrite the shipped JSONs from the reference compiler."""
-    for (naf, bits), table in _compile_all().items():
-        path = table_path(naf, bits)
-        path.write_text(json.dumps(_as_json(table)))
-        print(f"wrote {path}")
+    with tempfile.TemporaryDirectory() as root:
+        for (naf, bits), table in _compile_all(root).items():
+            path = table_path(naf, bits)
+            path.write_text(json.dumps(_as_json(table)))
+            print(f"wrote {path}")
 
 
 if __name__ == "__main__":
