@@ -134,12 +134,24 @@ Phases (any failure exits non-zero and prints no result line):
             dispatches logged), every table equal to a serial numpy
             compile by ``table_identity`` and to the shipped ``*-8.json``;
             the tables are then merged into the compile phase's store;
-            wall seconds, dispatches, candidate evaluations a second
+            wall seconds, dispatches, candidate evaluations a second; then
+            ``scripts/torch_sweep.py --preset smoke --hosts 2 --host-id
+            {0,1} --backend torch`` as two subprocesses at once and its
+            ``--merge-from``: the merged store equal to a serial numpy
+            compile of the smoke grid by ``table_identity``, each key
+            compiled on the card
 24. tune    ``autotune(smoke=True)`` on the card into a fresh store and its
-            verification; the smoke grid through a store with and one
+            verification, stage 3 included (the fused kernel's launch
+            shape: each candidate's device time at the served model's
+            decode and prefill gate, its output equal to the plain
+            version's bit for bit); stage 3 again over all four
+            candidates; the smoke grid through a store with and one
             without the tuned file: the same keys and tables (bytes equal
-            but for the effort counters a speculation depth moves); an
-            engine on the tuned store reports its config
+            but for the effort counters a speculation depth moves); a
+            full-width internlm2-1.8b engine on the tuned store applies
+            its ``fused_launch`` and gives the serve phase's tokens, the
+            fused and softmax kernels launched at least layers x steps
+            times and no plain version; the default launch is restored
 25. serve_store  the serve phase through ``ServeEngine(table_store=<the
             compile phase's store>)``: the engine resolves its six tables
             there (hits, no compile), they pack to the shipped constants,
@@ -157,6 +169,18 @@ Phases (any failure exits non-zero and prints no result line):
             least layers x steps times in each of a's and b's engines, no
             plain version runs; decode ms a step a tenant, warm admission
             seconds, peak memory
+27. chaos   ``scripts/torch_chaos.py``'s three legs: the smoke grid's live
+            sweep under three armed crash workers and a survivor, all
+            spawned and scanning on the card (grid complete, artifacts
+            byte-identical to a serial baseline, nothing quarantined, each
+            key compiled exactly once on ``torch@cuda`` by the ledger); a
+            merge worker killed mid-merge and a clean re-merge; full-width
+            internlm2-1.8b (24 layers, bf16, ``ppa``) as tenants on the
+            compile phase's store: a's greedy tokens equal a fault-free
+            run's and the serve phase's, b (``serve.tenant.warm`` armed)
+            alone degrades and rejects, c's expired request is reaped, the
+            fused and softmax kernels launch at least layers x steps times
+            in a's engine and no plain version runs; each leg's seconds
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
@@ -167,9 +191,8 @@ that run launched the integer, fused or softmax kernel (the fused kernel's
 by dtype, table and gate too: ``launched_shapes``) is held to the plain
 version and timed beside its bound (``path_rows``), and its row in the
 kernels line carries those launches (``launches_by_path`` adds the
-serve_store and tenants runs).  The last two lines are a JSON object
-with one entry per kernel, then ``{"ok": true,
-"device": {...}}``.
+tune, serve_store, tenants and chaos runs).  The last two lines are a JSON
+object with one entry per kernel, then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -457,7 +480,8 @@ def phase_build():
             f"{max(pr.get('spill_stores', -1) for pr in entries.values())} "
             f"bytes, spill loads max "
             f"{max(pr.get('spill_loads', -1) for pr in entries.values())} "
-            f"bytes, registers {min(regs)}-{max(regs)}")
+            f"bytes, registers {min(regs)}-{max(regs)} (entries by count: "
+            f"{dict(sorted(collections.Counter(regs).items()))})")
     if bad:
         raise AssertionError(f"entries with a stack frame or spills: {bad}")
 
@@ -2261,26 +2285,109 @@ def phase_sweep(torch, dev, card, store):
             raise AssertionError("the merge left an 8-bit table out of the "
                                  "compile phase's store")
         log(f"[sweep] merged into the compile phase's store: {stats}")
+        _sweep_cli(root / "cli", card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_tune(torch, dev, card):
+SWEEP_CLI = Path(__file__).resolve().parent / "scripts" / "torch_sweep.py"
+#: a sweep CLI subprocess's time limit
+SWEEP_CLI_TIMEOUT_S = 600
+
+
+def _run_cli(procs):
+    """Wait for every ``Popen`` of ``procs`` (killing all at the time
+    limit); returns their stdouts, and raises unless each exited 0."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=SWEEP_CLI_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"{p.args} exited {p.returncode}:\n"
+                                     f"{out}\n{err}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _sweep_cli(root, card):
+    """``scripts/torch_sweep.py --preset smoke --hosts 2 --host-id i
+    --backend torch`` as two subprocesses at once (one serial compile
+    process each, scanning on the card), then ``--merge-from`` both into
+    a third store: every key of the smoke grid compiled once on
+    ``torch@cuda``, and the merged store equal to a serial numpy compile
+    by ``table_identity``."""
+    from repro_torch.compiler import (TableStore, compile_batch, paper_grid,
+                                      table_identity)
+
+    def cli(*args):
+        return subprocess.Popen(
+            [sys.executable, str(SWEEP_CLI), *map(str, args)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    outs = _run_cli([cli("--preset", "smoke", "--hosts", 2, "--host-id", i,
+                         "--backend", "torch", "--processes", 1, "--store",
+                         root / f"host{i}", "--json") for i in range(2)])
+    wall = time.perf_counter() - t0
+    reports = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    t1 = time.perf_counter()
+    _run_cli([cli("--store", root / "merged", "--merge-from",
+                  root / "host0", root / "host1", "--json")])
+    merge_s = time.perf_counter() - t1
+    jobs = paper_grid("smoke")
+    t1 = time.perf_counter()
+    serial = compile_batch(jobs, store=TableStore(root / "serial"),
+                           processes=1)
+    serial_s = time.perf_counter() - t1
+    merged = TableStore(root / "merged")
+    for job, tab in zip(jobs, serial):
+        got = merged.lookup(job)
+        if got is None or table_identity(got) != table_identity(tab):
+            raise AssertionError(f"{job.naf} {job.scheme.tag}: the CLI's "
+                                 "merged store is not the serial compile")
+    compiled = sorted(k for r in reports for k in r["compiled"])
+    workers = [w for r in reports for w in r["compiled_by"].values()]
+    if compiled != sorted(j.key() for j in jobs) or any(
+            w["backend"] != "torch@cuda" for w in workers):
+        raise AssertionError(f"the CLI hosts did not compile each key once "
+                             f"on the card: {reports}")
+    log(f"[sweep] scripts/torch_sweep.py --preset smoke --hosts 2 --backend "
+        f"torch: {len(jobs)} keys in {wall:.3f} s wall (host 0 "
+        f"{len(reports[0]['compiled'])} keys, host 1 "
+        f"{len(reports[1]['compiled'])}; "
+        f"{sum(w['dispatches'] for w in workers)} dispatches on torch@cuda), "
+        f"--merge-from {merge_s:.3f} s, equal by table_identity to a serial "
+        f"numpy compile ({serial_s:.3f} s); card {card}")
+
+
+def phase_tune(torch, dev, card, store):
     """``autotune(smoke=True)`` on the card into a fresh store, then its
     verification (the file round-trips, ``compile_or_load`` picks it up,
-    the tuned table is the untuned one); the smoke grid compiled through a
+    the tuned table is the untuned one); stage 3 (the fused kernel's
+    launch shape, every candidate's output the plain version's bit for
+    bit) again over all four candidates; the smoke grid compiled through a
     store with the tuned file and one without gives the same keys and
     tables, byte for byte but for the effort counters a speculation depth
-    moves; an engine given the tuned store reports its config."""
+    moves; a full-width internlm2-1.8b engine given the tuned store (the
+    compile phase's tables merged in) applies the tuned ``fused_launch``
+    and gives the serve phase's greedy tokens through the kernels.  The
+    process defaults a tuned config sets are restored."""
     import shutil
     from repro_torch.compiler import EFFORT_STAT_KEYS, TableStore
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.core import TorchSearchBackend
-    from repro_torch.models import init_params, param_specs
-    from repro_torch.serve import ServeEngine
+    from repro_torch.kernels import fused, read_counts
     from repro_torch.tune import autotune, config
-    from repro_torch.tune.autotune import _SCHEME, _SMOKE_GRID, verify
+    from repro_torch.tune.autotune import (_SCHEME, _SMOKE_GRID,
+                                           tune_fused_launch, verify)
 
+    if store is None:
+        raise AssertionError("no store: the compile phase failed")
     root = STORE_DIR.parent / "chip_smoke_tune"
     shutil.rmtree(root, ignore_errors=True)
     floors = {k: getattr(TorchSearchBackend, k)
@@ -2290,6 +2397,15 @@ def phase_tune(torch, dev, card):
         cfg = autotune(root / "tuned", smoke=True, log=log)
         verify(root / "tuned", cfg, log=log)
         sec = time.perf_counter() - t0
+        if not any(k.startswith("fused_ms/") for k in cfg.score):
+            raise AssertionError("stage 3 timed no fused launch on the card")
+        t0 = time.perf_counter()
+        every = {}
+        best = tune_fused_launch(dev, fused.LAUNCH_CANDIDATES, every,
+                                 repeats=5, log=log)
+        log(f"[tune] stage 3 over all {len(fused.LAUNCH_CANDIDATES)} "
+            f"candidates in {time.perf_counter() - t0:.3f} s: least sum "
+            f"{best[0]}x{best[1]}; device ms a launch {every}; card {card}")
         tuned, plain = TableStore(root / "tuned"), TableStore(root / "plain")
         for naf, fcfg in _SMOKE_GRID:
             tuned.compile_or_load(naf, fcfg, _SCHEME)
@@ -2310,25 +2426,56 @@ def phase_tune(torch, dev, card):
                                      f"artifact ({sorted(diff)})")
             moved |= diff
         est = TableStore(root / "tuned")
-        est.merge(STORE_DIR)
-        mcfg = get_smoke_config("internlm2-1.8b").replace(act_impl="ppa")
-        eng = ServeEngine(mcfg, init_params(param_specs(mcfg), 0,
-                                            device=dev),
-                          n_slots=2, cache_len=64, table_store=est,
-                          device=dev)
-        if eng.tuned != cfg or TorchSearchBackend.K_FLOOR != cfg.k_floor:
+        est.merge(store.root)
+        # another shape in force before the engine: its tuned store must
+        # put the tuned one in force
+        other = next(lc for lc in fused.LAUNCH_CANDIDATES
+                     if lc != cfg.fused_launch)
+        fused.set_default_launch(other)
+        mcfg = get_config("internlm2-1.8b").replace(
+            act_impl="ppa", compute_dtype="bfloat16")
+        lens = SERVE_LENS[:SERVE_REQUESTS]
+        eng, reqs, steps, wall = _serve(torch, dev, mcfg, SERVE_REQUESTS,
+                                        SERVE_NEW, lens, est)
+        counts = read_counts()
+        if (eng.tuned != cfg or TorchSearchBackend.K_FLOOR != cfg.k_floor
+                or fused.default_launch() != cfg.fused_launch):
             raise AssertionError(f"the engine reports tuned {eng.tuned}, "
-                                 f"not {cfg}")
+                                 f"launch {fused.default_launch()}, not "
+                                 f"{cfg}")
+        if [list(r.output) for r in reqs] != TOKENS.get("serve"):
+            raise AssertionError("the tuned engine's greedy tokens are not "
+                                 "the serve phase's")
+        need = mcfg.n_layers * len(steps)
+        for k in ("ppa_fused", "softmax_ppa"):
+            if counts[k]["launches"] < need:
+                raise AssertionError(f"{k} launched {counts[k]['launches']}"
+                                     f" times < layers x steps = {need}")
+        plain_calls = {k: c["plain"] for k, c in counts.items()
+                       if "plain" in c}
+        if any(plain_calls.values()):
+            raise AssertionError(f"plain versions ran: {plain_calls}")
         log(f"[tune] autotune(smoke) + verify in {sec:.3f} s: "
             f"{cfg.summary()}; scores {cfg.score}; the smoke grid through "
             f"the tuned and untuned stores: same {len(names)} keys, "
             + ("the bytes equal" if not moved else
                f"equal but for the effort counters {sorted(moved)}")
-            + f"; an engine on the tuned store reports it; card {card}")
+            + f"; internlm2-1.8b 24L bf16 on the tuned store applied "
+            f"fused_launch {cfg.fused_launch} and gave the serve phase's "
+            f"tokens in {wall:.3f} s ({len(steps)} steps, launches fused "
+            f"{counts['ppa_fused']['launches']} softmax "
+            f"{counts['softmax_ppa']['launches']}); card {card}")
+        out = {k: {"total": counts[k]["launches"]}
+               for k in ("ppa_fused", "softmax_ppa")}
+        del eng
+        _free(torch)
+        return out, {}
     finally:
         for k, v in floors.items():
             setattr(TorchSearchBackend, k, v)
+        fused.set_default_launch(None)
         config._ACTIVE = None
+        config._RESOLVE_CACHE.clear()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2499,6 +2646,85 @@ def phase_tenants(torch, dev, card, store):
     return out, {}
 
 
+CHAOS_SCRIPT = Path(__file__).resolve().parent / "scripts" / "torch_chaos.py"
+
+
+def phase_chaos(torch, dev, card, store):
+    """``scripts/torch_chaos.py``'s three legs in this process (its workers
+    are fresh interpreters): the live sweep under three armed crash
+    workers and a survivor, all scanning on the card; the killed merge
+    and its clean retry; and, at full width, internlm2-1.8b (24 layers,
+    bf16, ``ppa``) as tenant a beside b (``serve.tenant.warm`` armed) and
+    c (a request past its deadline) on the compile phase's store, a
+    served the serve phase's requests.  Beyond the legs' own gates: the
+    sweep's keys compiled on ``torch@cuda``; a's tokens the serve phase's;
+    the fused and softmax kernels launched at least layers x steps times
+    in a's engine during the fault run, and no plain version."""
+    import importlib.util
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import init_params, param_specs
+
+    if store is None:
+        raise AssertionError("no store: the compile phase failed")
+    spec = importlib.util.spec_from_file_location("torch_chaos",
+                                                  CHAOS_SCRIPT)
+    chaos = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chaos)
+    root = STORE_DIR.parent / "chip_smoke_chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        sweep = chaos.sweep_leg(root, backend="torch", log=log)
+        if sweep["backend"] != "torch@cuda":
+            raise AssertionError(f"the sweep leg ran on {sweep['backend']}")
+        merge = chaos.merge_leg(root, log=log)
+        cfg = get_config("internlm2-1.8b").replace(
+            act_impl="ppa", compute_dtype="bfloat16")
+        params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
+                             device=dev)
+        lens = SERVE_LENS[:SERVE_REQUESTS]
+        rec = []
+
+        def hook(front):
+            _count_steps(torch, front.engines["a"], rec)
+            torch.cuda.synchronize()
+            reset_counts()
+
+        serve = chaos.serve_leg(
+            store, cfg, params, device=dev,
+            requests=lambda: _requests(cfg, SERVE_REQUESTS, SERVE_NEW, lens),
+            n_slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN, hook=hook,
+            log=log)
+        counts = read_counts()
+        if serve["tokens"] != TOKENS.get("serve"):
+            raise AssertionError("tenant a's greedy tokens are not the serve "
+                                 "phase's")
+        need = cfg.n_layers * len(rec)
+        got = {k: sum(c[k] for _, _, c in rec)
+               for k in ("ppa_fused", "softmax_ppa")}
+        if any(v < need for v in got.values()):
+            raise AssertionError(f"a's engine launched {got} < layers x "
+                                 f"steps = {need}")
+        plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+        if any(plain.values()):
+            raise AssertionError(f"plain versions ran in the front: {plain}")
+        log(f"[chaos] sweep leg {sweep['seconds']:.3f} s ({sweep['keys']} "
+            f"keys, 3 crashes and a survivor in {sweep['workers']} worker "
+            f"processes on {sweep['backend']}); merge leg "
+            f"{merge['seconds']:.3f} s; serve leg {serve['seconds']:.3f} s "
+            f"(internlm2-1.8b 24L bf16: a's {SERVE_REQUESTS} requests the "
+            f"serve phase's tokens, {len(rec)} steps, launches {got}, "
+            f"layers x steps = {need}); card {card}")
+        out = {k: {"total": counts[k]["launches"]}
+               for k in ("ppa_fused", "softmax_ppa")}
+        del serve, params
+        _free(torch)
+        return out, {}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2565,11 +2791,12 @@ def main() -> int:
         store = run("compile", phase_compile, torch, dev, card)
         run("workflow", phase_workflow, torch, dev, card)
         run("sweep", phase_sweep, torch, dev, card, store)
-        run("tune", phase_tune, torch, dev, card)
+        paths["tune"] = run("tune", phase_tune, torch, dev, card, store)
         paths["serve_store"] = run("serve_store", phase_serve_store, torch,
                                    dev, card, store)
         paths["tenants"] = run("tenants", phase_tenants, torch, dev, card,
                                store)
+        paths["chaos"] = run("chaos", phase_chaos, torch, dev, card, store)
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")

@@ -12,7 +12,8 @@ The work is ``chip_smoke.py``'s (``kernel_times``): each kernel is first
 held to its plain version (integer and fused: bit for bit; softmax:
 within 1e-6), then timed (device ms per launch from a CUDA graph of
 back-to-back launches, host us per call) beside its bound.  Prints one
-JSON object.
+JSON object, with the registers of every kernel entry the tree's build
+reported (``nvcc -Xptxas -v``; empty where the library was built before).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def main() -> int:
     sys.path[:0] = [str(src), str(ROOT)]
     import chip_smoke as cs
     import repro_torch
-    from repro_torch.kernels import fused, ppa, softmax_ppa
+    from repro_torch.kernels import build, fused, ppa, softmax_ppa
     from repro_torch.kernels.ops import pack_table
     from repro_torch.tables import load_table
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
@@ -50,8 +51,11 @@ def main() -> int:
         torch, dev, gen, ppa, fused, softmax_ppa,
         pack_table(load_table("sigmoid_wide", 16), dev),
         pack_table(load_table("exp2_frac", 16), dev), plain=False)
+    registers = {name: {e: pr.get("registers") for e, pr in
+                        cs.ptxas_entries(build.ptxas_log(name)).items()}
+                 for name in build.KERNELS}
     print(json.dumps({"src": str(src), "card": cs.card_line(),
-                      "times": times}))
+                      "times": times, "registers": registers}))
     return 0
 
 

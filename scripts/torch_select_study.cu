@@ -9,6 +9,11 @@
 // card.
 #include "ppa_fused.cu"
 
+// the package kernel's default launch shape (kernels/fused.py
+// DEFAULT_LAUNCH), at which both are timed
+#define FUSED_THREADS 128
+#define FUSED_BLOCKS_PER_SM 4
+
 struct CoarseArgs {
   const int* starts;  // (S,)
   const int* first;   // per bucket: the segment of its first input

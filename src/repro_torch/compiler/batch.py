@@ -107,8 +107,10 @@ def compile_batch(jobs: Sequence[CompileJob], *,
         store.compiled_by[key] = worker
         store.put(jobs[idxs[0]], tab)
         # fires only after the durable publish (the chaos ledger's
-        # exactly-once compile marker — see TableStore.compile_or_load)
-        failpoint("compile.job.done", key=key)
+        # exactly-once compile marker — see TableStore.compile_or_load);
+        # its line names the process and backend that compiled the key
+        failpoint("compile.job.done", key=key, pid=worker["pid"],
+                  backend=worker["backend"])
         for i in idxs:
             out[i] = tab
     return out  # type: ignore[return-value]

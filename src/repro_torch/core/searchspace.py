@@ -299,6 +299,8 @@ class TorchSearchBackend(SearchBackend):
         three results (``b_int``'s int64 bits ride in a float64 view)."""
         mae, b_int, mae0 = _torch_block_metrics(plan, w_b, flatten_b, a,
                                                 b_fixed, x, f, f_q)
+        # the backend's contract: a dispatch group returns host numpy, in
+        # ONE sync at this boundary.  analysis: allow(host-sync)
         res = torch.stack([mae, b_int.contiguous().view(torch.float64),
                            mae0]).cpu().numpy()
         self.counts["dispatches"] += 1

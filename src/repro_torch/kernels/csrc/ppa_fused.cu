@@ -39,9 +39,16 @@
 // * Each thread loads and stores 16 bytes (8 bf16 or 4 float32 values);
 //   the wrapper gives the count of such vectors, and the elements after
 //   them (or all of them, for an input not 16-byte aligned) take one
-//   thread each.  The grid is sized to that work up to 4 blocks per SM,
-//   beyond which blocks walk the input, so a block's staged table serves
-//   many vectors.
+//   thread each.  The grid is sized to that work up to the launch's
+//   blocks per SM (below), beyond which blocks walk the input, so a
+//   block's staged table serves many vectors.
+// * The launch shape (threads a block, blocks an SM at most) is the
+//   wrapper's argument: kernels/fused.py's process default, (128, 4), which
+//   the tuner (tune/autotune.py, stage 3) may replace.  The kernel reads
+//   blockDim, so one entry serves every shape; __launch_bounds__ of the
+//   largest block, FUSED_MAX_THREADS, caps its registers at 128.  Every
+//   shape computes each element alike, so the output is bit-identical
+//   across shapes.
 #include <cuda_bf16.h>
 
 #include "ppa_body.cuh"
@@ -57,8 +64,8 @@
 #define SAT_CONST 1
 #define SAT_IDENTITY 2
 
-#define FUSED_THREADS 128
-#define FUSED_BLOCKS_PER_SM 4
+// the largest block a launch may ask for (registers: 65536 / 512 = 128)
+#define FUSED_MAX_THREADS 512
 
 struct FusedArgs {
   const int* idx_lut;  // (hi - lo,) segment of each input in [lo, hi)
@@ -168,7 +175,7 @@ template <> struct Vec16<__nv_bfloat16> {
 // vector's load is issued before the table is staged, so both are in
 // flight together.
 template <typename T, int ORDER, int SYM, bool GATE>
-__global__ void __launch_bounds__(FUSED_THREADS)
+__global__ void __launch_bounds__(FUSED_MAX_THREADS)
     ppa_fused_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
                      long long n_vec, FusedArgs a, PpaPlan p) {
   constexpr int N = Vec16<T>::N;
@@ -177,8 +184,8 @@ __global__ void __launch_bounds__(FUSED_THREADS)
   const int span = a.hi - a.lo;
   const int* s_idx = smem;
   const int* s_coefs = smem + ppa_lut_coef_offset(span);
-  const long long g = (long long)blockIdx.x * FUSED_THREADS + threadIdx.x;
-  const long long stride = (long long)gridDim.x * FUSED_THREADS;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
   float v[N];
   if (g < n_vec) Vec16<T>::load(x + g * N, v);
   // sigmoid_wide-16's 13.5 KB in one round of 8 loads a thread
@@ -208,30 +215,31 @@ struct FusedLaunch {
   long long n, n_vec;
   FusedArgs a;
   PpaPlan p;
+  int threads, blocks_per_sm;
   cudaStream_t stream;
 };
 
 // One thread per vector (or per element past the vectors), in blocks of
-// FUSED_THREADS, at most FUSED_BLOCKS_PER_SM blocks per SM: a small input
+// L.threads, at most L.blocks_per_sm blocks per SM: a small input
 // (decode) gets a grid sized to it, a large one (prefill) walks with each
 // block's table staged once for many vectors.
 template <typename T, int ORDER, int SYM>
 static int launch_gate(const FusedLaunch& L, int gate) {
   PpaGrid g;
   const cudaError_t rc = ppa_lut_grid(
-      L.n_vec, L.n - L.n_vec * Vec16<T>::N, FUSED_THREADS,
-      FUSED_BLOCKS_PER_SM, L.a.hi - L.a.lo, L.a.num_coefs, &g);
+      L.n_vec, L.n - L.n_vec * Vec16<T>::N, L.threads, L.blocks_per_sm,
+      L.a.hi - L.a.lo, L.a.num_coefs, &g);
   if (rc != cudaSuccess) return (int)rc;
   const T* x = (const T*)L.x;
   T* y = (T*)L.y;
   if (gate)
     ppa_fused_kernel<T, ORDER, SYM, true>
-        <<<g.blocks, FUSED_THREADS, g.smem, L.stream>>>(x, y, L.n, L.n_vec,
-                                                        L.a, L.p);
+        <<<g.blocks, L.threads, g.smem, L.stream>>>(x, y, L.n, L.n_vec, L.a,
+                                                     L.p);
   else
     ppa_fused_kernel<T, ORDER, SYM, false>
-        <<<g.blocks, FUSED_THREADS, g.smem, L.stream>>>(x, y, L.n, L.n_vec,
-                                                        L.a, L.p);
+        <<<g.blocks, L.threads, g.smem, L.stream>>>(x, y, L.n, L.n_vec, L.a,
+                                                     L.p);
   return (int)cudaGetLastError();
 }
 
@@ -259,13 +267,18 @@ static int launch_order(const FusedLaunch& L, int sym, int gate) {
 
 // dtype: 0 float32, 1 bfloat16.  n_vec: 16-byte vectors to load as such
 // (0 unless x and y are 16-byte aligned).  statics_i: lo, hi, symmetry,
-// saturation, gate, w_in, w_out.
+// saturation, gate, w_in, w_out.  threads: a multiple of 32 up to
+// FUSED_MAX_THREADS; blocks_per_sm: at least 1, at most 2048 threads an SM.
 extern "C" int ppa_fused_launch(const void* x, void* y, long long n,
                                 long long n_vec, int dtype, const int* idx_lut,
                                 const int* coefs, int num_coefs,
                                 const int* plan_ints,
                                 const int* statics_i, float sat_hi,
+                                int threads, int blocks_per_sm,
                                 void* stream) {
+  if (threads <= 0 || threads > FUSED_MAX_THREADS || threads % 32 != 0 ||
+      blocks_per_sm <= 0 || threads * blocks_per_sm > 2048)
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   FusedLaunch L;
   L.x = x;
@@ -282,6 +295,8 @@ extern "C" int ppa_fused_launch(const void* x, void* y, long long n,
   L.a.scale_in = (float)(1 << statics_i[5]);
   L.a.inv_scale_out = 1.0f / (float)(1 << statics_i[6]);
   L.p = ppa_plan_from_ints(plan_ints);
+  L.threads = threads;
+  L.blocks_per_sm = blocks_per_sm;
   L.stream = (cudaStream_t)stream;
   const int sym = statics_i[2], gate = statics_i[4];
   if (dtype == 0) {

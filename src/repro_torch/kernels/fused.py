@@ -9,12 +9,19 @@ bfloat16 tensors.
 :func:`condition_f32` is the plain composition (``repro/kernels/ops.py::
 _apply_f32`` op for op); with the plain integer datapath it is the plain
 version of the kernel, which the wrapper runs on a CPU tensor.
+
+The launch shape, (threads a block, blocks an SM at most), is an execution
+knob like the reference's Pallas block (``repro/kernels/ppa.py::
+default_block``): every shape gives the same output, bit for bit.
+:func:`set_default_launch` sets the process default, which the tuner's
+third stage measures (``repro_torch.tune``).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,8 +29,9 @@ from .build import (VECTOR_BYTES, check_cuda_input, get_lib, raise_on_error,
                     stream_of, vector_split)
 from .ref import ppa_eval_ref
 
-__all__ = ["condition_f32", "counts", "ppa_fused_apply", "ppa_fused_plain",
-           "shape_counts", "variant_counts"]
+__all__ = ["DEFAULT_LAUNCH", "LAUNCH_CANDIDATES", "condition_f32", "counts",
+           "default_launch", "ppa_fused_apply", "ppa_fused_plain",
+           "set_default_launch", "shape_counts", "variant_counts"]
 
 #: kernel launches and plain-version calls
 counts = {"launches": 0, "plain": 0}
@@ -36,6 +44,42 @@ variant_counts: collections.Counter = collections.Counter()
 _SYMMETRY_CODE = {None: 0, "odd": 1, "sigmoid": 2, "minus_x": 3}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _c = ctypes.c_void_p
+
+#: (threads a block, blocks an SM at most) of a launch that names none
+DEFAULT_LAUNCH: Tuple[int, int] = (128, 4)
+#: the shapes the tuner times (``csrc/ppa_fused.cu`` takes any block of a
+#: multiple of 32 threads up to 512, at most 2048 threads an SM)
+LAUNCH_CANDIDATES: Tuple[Tuple[int, int], ...] = (
+    (128, 4), (256, 2), (256, 4), (512, 2))
+_MAX_THREADS, _SM_THREADS = 512, 2048
+
+#: the process default, overridable by a tuned config (``tune.activate``)
+_active_launch: Tuple[int, int] = DEFAULT_LAUNCH
+
+
+def _check_launch(launch) -> Tuple[int, int]:
+    threads, per_sm = int(launch[0]), int(launch[1])
+    if (threads <= 0 or threads > _MAX_THREADS or threads % 32
+            or per_sm <= 0 or threads * per_sm > _SM_THREADS):
+        raise ValueError(f"fused launch {launch}: threads must be a "
+                         f"multiple of 32 up to {_MAX_THREADS}, and "
+                         f"threads x blocks an SM at most {_SM_THREADS}")
+    return threads, per_sm
+
+
+def default_launch() -> Tuple[int, int]:
+    """The launch shape of a call that names none."""
+    return _active_launch
+
+
+def set_default_launch(launch: Optional[Tuple[int, int]]
+                       ) -> Tuple[int, int]:
+    """Set the process default launch shape (None resets it to
+    ``DEFAULT_LAUNCH``); returns the shape now in force."""
+    global _active_launch
+    _active_launch = DEFAULT_LAUNCH if launch is None \
+        else _check_launch(launch)
+    return _active_launch
 
 
 def eval_ref(tc, x_int: torch.Tensor) -> torch.Tensor:
@@ -104,14 +148,20 @@ def _lib() -> ctypes.CDLL:
     if lib.ppa_fused_launch.argtypes is None:
         lib.ppa_fused_launch.argtypes = [
             _c, _c, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _c,
-            _c, ctypes.c_int, _c, _c, ctypes.c_float, _c]
+            _c, ctypes.c_int, _c, _c, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, _c]
         lib.ppa_fused_launch.restype = ctypes.c_int
     return lib
 
 
-def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
+def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False,
+                    launch: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
     """``T(x)`` (or ``x * T(x)`` with ``gate``) for a float32 or bfloat16
-    tensor of any shape; the output has the input's dtype."""
+    tensor of any shape; the output has the input's dtype.  ``launch``:
+    (threads, blocks an SM) of the kernel (None: :func:`default_launch`)."""
+    threads, per_sm = _check_launch(launch) if launch is not None \
+        else _active_launch
     if x.device.type == "cpu":
         return ppa_fused_plain(tc, x, gate)
     check_cuda_input(x, tuple(_DTYPE_CODE), "ppa_fused")
@@ -132,7 +182,7 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False) -> torch.Tensor:
             x.data_ptr(), y.data_ptr(), x.numel(), n_vec,
             _DTYPE_CODE[x.dtype], tc.idx_lut.data_ptr(),
             tc.coefs.data_ptr(), tc.coefs.numel(), ctypes.cast(plan, _c),
-            ctypes.cast(statics, _c), sat_hi, stream_of(x))
+            ctypes.cast(statics, _c), sat_hi, threads, per_sm, stream_of(x))
     raise_on_error(rc, "ppa_fused")
     counts["launches"] += 1
     shape_counts[tuple(x.shape)] += 1

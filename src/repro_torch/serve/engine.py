@@ -288,6 +288,9 @@ class ServeEngine:
         out = np.zeros((len(temps),), np.int64)
         t_rows = [j for j, s in enumerate(seeds) if s is not None]
         if len(t_rows) < len(temps):
+            # the tokens must reach the host each step (the requests'
+            # outputs, the next step's inputs): sync 1 of at most 2.
+            # analysis: allow(host-sync)
             out[:] = torch.argmax(logits, dim=-1).cpu().numpy()
         if t_rows:
             noise = []
@@ -302,6 +305,8 @@ class ServeEngine:
                                  dtype=torch.float32, device=self.device)
             scores = (logits[idx].to(torch.float32) / tt[:, None]
                       + torch.stack(noise))
+            # sync 2 of at most 2: every sampled row in one copy.
+            # analysis: allow(host-sync)
             out[t_rows] = torch.argmax(scores, dim=-1).cpu().numpy()
         return out
 

@@ -3,8 +3,9 @@
 A copy of the JAX package's ``tune/`` for the port.  The execution knobs —
 search-backend choice, TBW speculation depth and ``TorchSearchBackend``'s
 padding floors (``K_FLOOR``/``G_FLOOR``/``BATCH_ELEMS``) — change how
-fast a table compiles, never what it compiles, so they are safe to tune
-per device and apply silently.
+fast a table compiles, never what it compiles, and the fused kernel's
+launch shape how fast an activation runs, never what it returns, so they
+are safe to tune per device and apply silently.
 
 :mod:`repro_torch.tune.config` defines the :class:`TunedConfig` record,
 its device-keyed persistence next to a ``TableStore`` (``<root>/tune/

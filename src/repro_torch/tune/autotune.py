@@ -1,18 +1,23 @@
 """The autotuner: measure candidate execution configs, persist the winner.
 
-A copy of the JAX package's ``tune/autotune.py`` for the port.  Two staged
-sweeps, each timing the *real* compile path (``compile_table`` with a
-fresh ``CompilerSession`` per measurement, so nothing is answered from a
-warm cache):
+A copy of the JAX package's ``tune/autotune.py`` for the port.  Three
+staged sweeps, each timing the *real* code path: ``compile_table`` with a
+fresh ``CompilerSession`` per measurement (so nothing is answered from a
+warm cache), and the fused kernel's wrapper ``ppa_fused_apply``:
 
   1. (search backend × speculation depth) over a small compile grid —
      ``numpy`` on the host and ``torch`` (``TorchSearchBackend``) on the
      card, or on the CPU when asked for;
   2. ``TorchSearchBackend``'s padding floors (``K_FLOOR``/``G_FLOOR``/
-     ``BATCH_ELEMS``), only when ``torch`` won stage 1.
+     ``BATCH_ELEMS``), only when ``torch`` won stage 1;
+  3. the fused kernel's launch shape (threads a block, blocks an SM), the
+     counterpart of the reference's Pallas block: device ms a launch
+     (CUDA events over a CUDA graph of back-to-back launches, the median
+     of repeats) at the served model's two fused shapes, the winner the
+     least sum; every candidate's output must equal the plain version's
+     bit for bit.  Where the tuned device is not a card there is no
+     kernel to time, and the default shape is recorded.
 
-The CUDA kernels fix their launch shapes when they are built, so the
-reference's third stage (a Pallas block shape) has no counterpart yet.
 The winner is persisted device-keyed next to the ``TableStore``
 (:func:`repro_torch.tune.config.save_tuned`), where ``compile_or_load``
 and ``ServeEngine(table_store=...)`` resolve it.  Every candidate is an
@@ -36,6 +41,7 @@ from ..compiler.compile import CompilerSession, compile_table, table_identity
 from ..core.datapath import FWLConfig
 from ..core.schemes import PPAScheme
 from ..core.searchspace import TorchSearchBackend
+from ..kernels.fused import DEFAULT_LAUNCH, LAUNCH_CANDIDATES
 
 from .config import TunedConfig, device_key, save_tuned
 
@@ -50,6 +56,14 @@ _SMOKE_GRID = [("sigmoid", _CFG1), ("tanh", _CFG1)]
 _FULL_GRID = _SMOKE_GRID + [("gelu_inner", _CFG1), ("sigmoid", _CFG2)]
 
 _SCHEME = PPAScheme(1, None, "fqa")
+
+#: stage 3's inputs: the served model's SwiGLU gate (internlm2-1.8b, bf16
+#: into the gated sigmoid_wide-16 table) at decode (4 slots x 1 token) and
+#: at a prefill group of 4 x 128 tokens
+FUSED_TABLE = ("sigmoid_wide", 16)
+FUSED_SHAPES = {"decode": (4, 1, 8192), "prefill": (512, 8192)}
+#: stage 3's candidates with ``smoke``
+_SMOKE_LAUNCHES = ((128, 4), (256, 4))
 
 
 def _time_compile_grid(grid, *, backend, speculate, repeats: int
@@ -73,6 +87,79 @@ def _time_compile_grid(grid, *, backend, speculate, repeats: int
         tables = tabs
     times.sort()
     return times[len(times) // 2], [table_identity(t) for t in tables]
+
+
+def fused_launch_times(launch: Tuple[int, int], dev, *, repeats: int = 5,
+                       iters: int = 100) -> Dict[str, float]:
+    """{shape label: device ms a launch} of the fused kernel at ``launch``
+    on ``FUSED_SHAPES`` (inputs N(0, 4) from seed 0), the median of
+    ``repeats`` replays of a CUDA graph of ``iters`` launches.  Raises
+    unless the output equals the plain version's bit for bit."""
+    import torch
+
+    from ..kernels.fused import ppa_fused_apply, ppa_fused_plain
+    from ..kernels.ops import pack_table
+    from ..tables import load_table
+
+    tc = pack_table(load_table(*FUSED_TABLE), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    for label, shape in FUSED_SHAPES.items():
+        x = (torch.randn(shape, generator=gen, device=dev) * 4.0
+             ).to(torch.bfloat16)
+        got = ppa_fused_apply(tc, x, True, launch=launch)
+        if not torch.equal(got, ppa_fused_plain(tc, x, True)):
+            raise AssertionError(f"fused launch {launch} changed the output "
+                                 f"at {label} {shape}: launch shapes must "
+                                 f"be bit-neutral")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                ppa_fused_apply(tc, x, True, launch=launch)
+        graph.replay()
+        times = []
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        times.sort()
+        out[label] = times[len(times) // 2]
+        del graph
+    return out
+
+
+def tune_fused_launch(dev, candidates: Sequence[Tuple[int, int]],
+                      score: Dict[str, float], *, repeats: int = 5,
+                      log=print) -> Tuple[int, int]:
+    """Stage 3: the candidate launch with the least summed device time
+    over ``FUSED_SHAPES`` on the card ``dev``; each time lands in
+    ``score`` (``fused_ms/<threads>x<blocks>/<shape>``).  Off a card there
+    is no kernel to time: the default is returned."""
+    if dev is None or dev.type != "cuda":
+        log(f"[tune] stage 3: no card ({dev or 'none'}), so no fused "
+            f"kernel to time; recording the default launch "
+            f"{DEFAULT_LAUNCH[0]}x{DEFAULT_LAUNCH[1]}")
+        return DEFAULT_LAUNCH
+    best = (float("inf"), DEFAULT_LAUNCH)
+    for launch in candidates:
+        times = fused_launch_times(launch, dev, repeats=repeats)
+        tag = f"{launch[0]}x{launch[1]}"
+        for label, ms in times.items():
+            score[f"fused_ms/{tag}/{label}"] = round(ms, 6)
+        total = sum(times.values())
+        log(f"[tune] fused launch {tag}: " + ", ".join(
+            f"{label} {ms * 1e3:.3f} us" for label, ms in times.items())
+            + f" (sum {total * 1e3:.3f} us; output equal to the plain "
+            f"version's)")
+        if total < best[0]:
+            best = (total, launch)
+    log(f"[tune] fused launch winner {best[1][0]}x{best[1][1]}")
+    return best[1]
 
 
 def autotune(root: "str | Path | None" = None, *, smoke: bool = False,
@@ -146,12 +233,18 @@ def autotune(root: "str | Path | None" = None, *, smoke: bool = False,
                 floor_best = (wall, (kf, gf, be))
         k_floor, g_floor, batch_elems = floor_best[1]
 
+    # stage 3 — the fused kernel's launch shape (on a card only)
+    fused_launch = tune_fused_launch(
+        dev, _SMOKE_LAUNCHES if smoke else LAUNCH_CANDIDATES, score,
+        repeats=max(repeats, 3), log=log)
+
     # a config is keyed by the device its torch candidates scanned on
     key = "cpu/host" if dev is not None and dev.type == "cpu" \
         else device_key()
     cfg = TunedConfig(device=key, search_backend=backend, speculate=speculate,
                       k_floor=k_floor, g_floor=g_floor,
-                      batch_elems=batch_elems, score=score)
+                      batch_elems=batch_elems, fused_launch=fused_launch,
+                      score=score)
     log(f"[tune] winner: {cfg.summary()}")
     if root is not None:
         path = save_tuned(cfg, root)

@@ -12,14 +12,16 @@ Tuned values are execution knobs only: they never enter a store key, and
 artifacts compiled with and without them are byte-identical.
 
 The port's knobs are the search backend (``numpy`` | ``torch``), the TBW
-speculation depth and ``TorchSearchBackend``'s padding floors.  The CUDA
-kernels fix their launch shapes when they are built, so there is no
-block-shape knob here.
+speculation depth, ``TorchSearchBackend``'s padding floors and the fused
+kernel's launch shape (``fused_launch``: threads a block, blocks an SM at
+most), the counterpart of the reference's Pallas ``block``.  A file
+written before ``fused_launch`` existed loads with its default.
 
 Resolution order for a knob (highest wins):
 
   1. an explicit argument (``compile_table(speculate=...)``,
-     ``compile_or_load(search_backend=...)``, a ``CompileJob`` field)
+     ``compile_or_load(search_backend=...)``, a ``CompileJob`` field, an
+     explicit ``launch=`` at a ``ppa_fused_apply`` call)
   2. the operator env var ``$REPRO_TORCH_SEARCH_BACKEND`` — a host-level
      override beats a stale tuning file without a re-tune
   3. the persisted TunedConfig for this device
@@ -34,6 +36,8 @@ import json
 import os
 from pathlib import Path
 from typing import Dict, Optional, Tuple
+
+from ..kernels.fused import DEFAULT_LAUNCH, set_default_launch
 
 __all__ = ["TUNE_DIR", "TUNE_ENV", "TUNE_VERSION", "TunedConfig",
            "activate", "activate_for_store", "active_config", "device_key",
@@ -81,8 +85,10 @@ class TunedConfig:
     k_floor: int = 64
     g_floor: int = 32
     batch_elems: int = 1 << 23
-    #: measurement evidence (wall seconds per candidate) — documentation
-    #: for operators, never read back programmatically
+    #: the fused kernel's launch shape (threads a block, blocks an SM)
+    fused_launch: Tuple[int, int] = DEFAULT_LAUNCH
+    #: measurement evidence (wall seconds or device ms per candidate) —
+    #: documentation for operators, never read back programmatically
     score: Dict[str, float] = dataclasses.field(default_factory=dict)
     version: int = TUNE_VERSION
 
@@ -93,13 +99,16 @@ class TunedConfig:
     @classmethod
     def from_json(cls, text: str) -> "TunedConfig":
         blob = json.loads(text)
+        if "fused_launch" in blob:
+            blob["fused_launch"] = tuple(blob["fused_launch"])
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in blob.items() if k in known})
 
     def summary(self) -> str:
         return (f"device={self.device} backend={self.search_backend} "
                 f"speculate={self.speculate} floors=(K{self.k_floor}/"
-                f"G{self.g_floor}/B{self.batch_elems})")
+                f"G{self.g_floor}/B{self.batch_elems}) fused_launch="
+                f"{self.fused_launch[0]}x{self.fused_launch[1]}")
 
 
 def tuned_path(root: "str | Path", device: Optional[str] = None) -> Path:
@@ -171,10 +180,11 @@ def activate(cfg: TunedConfig) -> Dict[str, object]:
 
     Sets ``TorchSearchBackend``'s class-level floors (new and existing
     instances without their own floors read them; the floors only change
-    padding, never results).  The per-job knobs — search backend choice
-    and speculation depth — are NOT applied here; they are filled in where
-    jobs are built (``TableStore``) so explicit arguments and the env
-    override keep precedence.
+    padding, never results) and the fused kernel's default launch shape
+    (every shape gives the same output).  The per-job knobs — search
+    backend choice and speculation depth — are NOT applied here; they are
+    filled in where jobs are built (``TableStore``) so explicit arguments
+    and the env override keep precedence.
     """
     global _ACTIVE
     from ..core.searchspace import TorchSearchBackend
@@ -182,9 +192,10 @@ def activate(cfg: TunedConfig) -> Dict[str, object]:
     TorchSearchBackend.K_FLOOR = int(cfg.k_floor)
     TorchSearchBackend.G_FLOOR = int(cfg.g_floor)
     TorchSearchBackend.BATCH_ELEMS = int(cfg.batch_elems)
+    launch = set_default_launch(cfg.fused_launch)
     _ACTIVE = cfg
     return {"k_floor": cfg.k_floor, "g_floor": cfg.g_floor,
-            "batch_elems": cfg.batch_elems}
+            "batch_elems": cfg.batch_elems, "fused_launch": launch}
 
 
 def activate_for_store(store) -> Optional[TunedConfig]:

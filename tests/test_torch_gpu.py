@@ -84,6 +84,31 @@ def test_cuda_fused_kernel_on_card(naf, bits, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("launch", fused.LAUNCH_CANDIDATES)
+def test_cuda_fused_kernel_at_every_launch(launch, dtype):
+    """Every launch shape the tuner may pick (threads a block, blocks an
+    SM) gives the plain version's output bit for bit: at the served decode
+    and prefill shapes, a size that is not a multiple of 8 and an
+    unaligned input, gated and not, on every table."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    for naf, bits in TABLES:
+        tc = K.pack_table(load_table(naf, bits), dev)
+        for shape in FUSED_SHAPES + [(3, 1001), (8192,)]:
+            x = torch.randn(shape, generator=gen, device=dev)
+            if shape == (8192,):
+                x = x[1:]           # not 16-byte aligned: no vectors
+            x = (x * tc.interval[1]).to(getattr(torch, dtype))
+            for gate in (False, True):
+                assert torch.equal(
+                    fused.ppa_fused_apply(tc, x, gate, launch=launch),
+                    fused.ppa_fused_plain(tc, x, gate)), (naf, bits, shape,
+                                                          gate)
+
+
+@pytest.mark.gpu
 def test_softmax_kernel_on_card():
     dev = _card()
     tc = K.pack_table(load_table("exp2_frac", 16), dev)

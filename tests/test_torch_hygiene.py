@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package
-(its compiler, faults and analysis modules included), and ``chip_smoke.py``
-refuses to run without a CUDA card or without the
-repository beside it."""
+(its compiler, faults and analysis modules included, and the port's
+``scripts/torch_*.py``), and ``chip_smoke.py`` refuses to run without a
+CUDA card or without the repository beside it."""
 
 import os
 import pkgutil
@@ -85,6 +85,37 @@ def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(text)]
     assert not hits, hits
+
+
+PORT_SCRIPTS = sorted(str(p.relative_to(ROOT))
+                      for p in (ROOT / "scripts").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_SCRIPTS)
+def test_no_jax_or_repro_import_in_port_scripts(path):
+    text = (ROOT / path).read_text()
+    hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(text)]
+    assert not hits, hits
+
+
+def test_port_cli_scripts_load_without_jax_or_repro():
+    """The sweep CLI and the chaos harness, loaded as their callers load
+    them, bring in neither JAX nor the JAX package."""
+    assert {"scripts/torch_sweep.py", "scripts/torch_chaos.py"} <= set(
+        PORT_SCRIPTS)
+    code = (
+        "import importlib.util, sys\n"
+        "for p in ('scripts/torch_sweep.py', 'scripts/torch_chaos.py'):\n"
+        "    spec = importlib.util.spec_from_file_location('m', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import repro_torch.analysis.__main__, repro_torch.analysis.lint\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('LEAKED', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,10 +1,13 @@
 """The port's per-device tuner on the CPU: the ``TunedConfig`` record and
 its file (apart from the JAX package's), the knob precedence of
 ``TableStore._apply_tuned`` (argument, then environment, then file, then
-default), artifacts equal with and without a tuned config, and
-``autotune(smoke=True)`` with every candidate's tables equal.  Stores are
-written only under ``tmp_path``; the class-level floors a tuned config
-sets are restored after every test."""
+default), artifacts equal with and without a tuned config,
+``autotune(smoke=True)`` with every candidate's tables equal, and the
+fused kernel's launch shape (``fused_launch``: its round trip, a file
+written before the field existed, the default recorded off a card).
+Stores are written only under ``tmp_path``; the class-level floors and
+the fused kernel's default launch a tuned config sets are restored after
+every test."""
 
 import json
 
@@ -18,6 +21,7 @@ from repro_torch.compiler import (CompileJob, TableStore,  # noqa: E402
 from repro_torch.core import (FWLConfig, PPAScheme,  # noqa: E402
                               TorchSearchBackend)
 from repro_torch.core.searchspace import BACKEND_ENV  # noqa: E402
+from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.tune import (TUNE_ENV, TunedConfig, activate,  # noqa: E402
                               autotune, config, device_key, load_tuned,
                               resolve_tuned, save_tuned, tuned_path)
@@ -30,15 +34,18 @@ FLOORS = ("K_FLOOR", "G_FLOOR", "BATCH_ELEMS")
 @pytest.fixture(autouse=True)
 def _restore_tuning(monkeypatch):
     """Every floor a tuned config sets on ``TorchSearchBackend`` (class
-    attributes, shared by the whole process) is put back, with the
-    module's active config and resolve cache."""
+    attributes, shared by the whole process) is put back, with the fused
+    kernel's default launch, the module's active config and resolve
+    cache."""
     saved = {k: getattr(TorchSearchBackend, k) for k in FLOORS}
+    launch = fused.default_launch()
     active = config._ACTIVE
     monkeypatch.delenv(BACKEND_ENV, raising=False)
     monkeypatch.delenv(TUNE_ENV, raising=False)
     yield
     for k, v in saved.items():
         setattr(TorchSearchBackend, k, v)
+    fused.set_default_launch(launch)
     config._ACTIVE = active
     config._RESOLVE_CACHE.clear()
 
@@ -46,7 +53,9 @@ def _restore_tuning(monkeypatch):
 def _tuned(**kw):
     base = dict(device=device_key(), search_backend="torch", speculate=3,
                 k_floor=32, g_floor=16, batch_elems=1 << 21,
-                score={"compile_s/torch/spec3": 0.5})
+                fused_launch=(256, 2),
+                score={"compile_s/torch/spec3": 0.5,
+                       "fused_ms/256x2/decode": 0.0026})
     return TunedConfig(**{**base, **kw})
 
 
@@ -61,6 +70,48 @@ def test_tuned_config_round_trips(tmp_path):
     # a config of another version is ignored, not misread
     path.write_text(json.dumps({**json.loads(cfg.to_json()), "version": 0}))
     assert load_tuned(tmp_path) is None
+
+
+def test_fused_launch_round_trips_and_old_files_load(tmp_path):
+    """``fused_launch`` is written as a list and read back as the tuple; a
+    file written before the field existed loads with the default launch,
+    and activating it puts the default in force."""
+    cfg = _tuned()
+    blob = json.loads(cfg.to_json())
+    assert blob["fused_launch"] == [256, 2]
+    save_tuned(cfg, tmp_path)
+    assert load_tuned(tmp_path).fused_launch == (256, 2)
+    del blob["fused_launch"]
+    tuned_path(tmp_path).write_text(json.dumps(blob))
+    old = load_tuned(tmp_path)
+    assert old.fused_launch == fused.DEFAULT_LAUNCH == (128, 4)
+    assert old == _tuned(fused_launch=(128, 4))
+    fused.set_default_launch((512, 2))
+    assert activate(old)["fused_launch"] == (128, 4)
+    assert fused.default_launch() == (128, 4)
+
+
+@pytest.mark.parametrize("launch", [(0, 4), (100, 4), (1024, 1), (512, 8),
+                                    (128, 0)])
+def test_fused_launch_is_checked(launch):
+    """A launch the kernel cannot take is refused before any launch."""
+    with pytest.raises(ValueError, match="fused launch"):
+        fused.set_default_launch(launch)
+    with pytest.raises(ValueError, match="fused launch"):
+        fused.ppa_fused_apply(None, torch.zeros(4), launch=launch)
+    assert fused.default_launch() == fused.DEFAULT_LAUNCH
+
+
+def test_plain_version_ignores_the_launch():
+    """On the CPU every launch shape gives the plain version's output."""
+    from repro_torch.kernels.ops import pack_table
+    from repro_torch.tables import load_table
+    tc = pack_table(load_table("sigmoid_wide", 16), "cpu")
+    x = torch.linspace(-9.0, 9.0, 4099)
+    want = fused.ppa_fused_plain(tc, x, True)
+    for launch in fused.LAUNCH_CANDIDATES:
+        assert torch.equal(fused.ppa_fused_apply(tc, x, True, launch=launch),
+                           want)
 
 
 def test_tuned_file_never_collides_with_the_reference(tmp_path):
@@ -80,7 +131,9 @@ def test_tuned_file_never_collides_with_the_reference(tmp_path):
 
 def test_activate_sets_the_torch_backend_floors():
     out = activate(_tuned())
-    assert out == {"k_floor": 32, "g_floor": 16, "batch_elems": 1 << 21}
+    assert out == {"k_floor": 32, "g_floor": 16, "batch_elems": 1 << 21,
+                   "fused_launch": (256, 2)}
+    assert fused.default_launch() == (256, 2)
     assert (TorchSearchBackend.K_FLOOR, TorchSearchBackend.G_FLOOR,
             TorchSearchBackend.BATCH_ELEMS) == (32, 16, 1 << 21)
     own = TorchSearchBackend("cpu", k_floor=128)
@@ -142,7 +195,8 @@ def test_autotune_smoke_on_cpu(tmp_path):
     """Stage 1 times numpy and torch (on the CPU) at speculation 0 and 3,
     stage 2 the floors if torch wins; every candidate's tables are equal
     (autotune raises otherwise), and the winner persists and is picked
-    up."""
+    up.  Stage 3 has no kernel to time on the CPU: it records the default
+    launch and says so."""
     from repro_torch.tune.autotune import verify
     logs = []
     cfg = autotune(tmp_path, smoke=True, device="cpu", log=logs.append)
@@ -150,6 +204,9 @@ def test_autotune_smoke_on_cpu(tmp_path):
     assert {"compile_s/numpy/spec0", "compile_s/numpy/spec3",
             "compile_s/torch/spec0", "compile_s/torch/spec3"} <= set(cfg.score)
     assert cfg.search_backend in ("numpy", "torch")
+    assert cfg.fused_launch == fused.DEFAULT_LAUNCH
+    assert not any(k.startswith("fused_ms/") for k in cfg.score)
+    assert any("stage 3: no card" in line for line in logs)
     assert load_tuned(tmp_path) == cfg
     verify(tmp_path, cfg, log=logs.append)
     assert any("verify OK" in line for line in logs)
