@@ -2404,7 +2404,7 @@ def phase_tune(torch, dev, card, store):
         best = tune_fused_launch(dev, fused.LAUNCH_CANDIDATES, every,
                                  repeats=5, log=log)
         log(f"[tune] stage 3 over all {len(fused.LAUNCH_CANDIDATES)} "
-            f"candidates in {time.perf_counter() - t0:.3f} s: least sum "
+            f"candidates in {time.perf_counter() - t0:.3f} s: pick "
             f"{best[0]}x{best[1]}; device ms a launch {every}; card {card}")
         tuned, plain = TableStore(root / "tuned"), TableStore(root / "plain")
         for naf, fcfg in _SMOKE_GRID:

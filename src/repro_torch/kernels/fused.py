@@ -154,14 +154,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False,
-                    launch: Optional[Tuple[int, int]] = None
+def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False
                     ) -> torch.Tensor:
     """``T(x)`` (or ``x * T(x)`` with ``gate``) for a float32 or bfloat16
-    tensor of any shape; the output has the input's dtype.  ``launch``:
-    (threads, blocks an SM) of the kernel (None: :func:`default_launch`)."""
-    threads, per_sm = _check_launch(launch) if launch is not None \
-        else _active_launch
+    tensor of any shape; the output has the input's dtype.  The kernel
+    launches at :func:`default_launch`."""
     if x.device.type == "cpu":
         return ppa_fused_plain(tc, x, gate)
     check_cuda_input(x, tuple(_DTYPE_CODE), "ppa_fused")
@@ -182,7 +179,8 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False,
             x.data_ptr(), y.data_ptr(), x.numel(), n_vec,
             _DTYPE_CODE[x.dtype], tc.idx_lut.data_ptr(),
             tc.coefs.data_ptr(), tc.coefs.numel(), ctypes.cast(plan, _c),
-            ctypes.cast(statics, _c), sat_hi, threads, per_sm, stream_of(x))
+            ctypes.cast(statics, _c), sat_hi, *_active_launch,
+            stream_of(x))
     raise_on_error(rc, "ppa_fused")
     counts["launches"] += 1
     shape_counts[tuple(x.shape)] += 1

@@ -12,11 +12,13 @@ warm cache), and the fused kernel's wrapper ``ppa_fused_apply``:
      ``BATCH_ELEMS``), only when ``torch`` won stage 1;
   3. the fused kernel's launch shape (threads a block, blocks an SM), the
      counterpart of the reference's Pallas block: device ms a launch
-     (CUDA events over a CUDA graph of back-to-back launches, the median
-     of repeats) at the served model's two fused shapes, the winner the
-     least sum; every candidate's output must equal the plain version's
-     bit for bit.  Where the tuned device is not a card there is no
-     kernel to time, and the default shape is recorded.
+     (CUDA events over a CUDA graph of back-to-back launches, repeats
+     interleaved across candidates) at the served model's two fused
+     shapes; the least median sum wins only by more than the spread of
+     its repeats and the default's, else the default is kept; every
+     candidate's output must equal the plain version's bit for bit.
+     Where the tuned device is not a card there is no kernel to time,
+     and the default shape is recorded.
 
 The winner is persisted device-keyed next to the ``TableStore``
 (:func:`repro_torch.tune.config.save_tuned`), where ``compile_or_load``
@@ -89,77 +91,125 @@ def _time_compile_grid(grid, *, backend, speculate, repeats: int
     return times[len(times) // 2], [table_identity(t) for t in tables]
 
 
-def fused_launch_times(launch: Tuple[int, int], dev, *, repeats: int = 5,
-                       iters: int = 100) -> Dict[str, float]:
-    """{shape label: device ms a launch} of the fused kernel at ``launch``
-    on ``FUSED_SHAPES`` (inputs N(0, 4) from seed 0), the median of
-    ``repeats`` replays of a CUDA graph of ``iters`` launches.  Raises
-    unless the output equals the plain version's bit for bit."""
+def fused_launch_times(candidates: Sequence[Tuple[int, int]], dev, *,
+                       repeats: int = 5, iters: int = 100
+                       ) -> Dict[Tuple[int, int], Dict[str, List[float]]]:
+    """{launch: {shape label: [device ms a launch, one a repeat]}} of the
+    fused kernel at each of ``candidates`` on ``FUSED_SHAPES`` (inputs
+    N(0, 4) from seed 0).  A repeat is one replay of a CUDA graph of
+    ``iters`` launches, captured with that launch as the process default
+    (the default in force before is restored).  The repeats are
+    interleaved across the candidates, in an order rotated each round, so
+    drift over the run falls on all of them alike.  Raises unless every
+    candidate's output equals the plain version's bit for bit."""
     import torch
 
-    from ..kernels.fused import ppa_fused_apply, ppa_fused_plain
+    from ..kernels import fused
     from ..kernels.ops import pack_table
     from ..tables import load_table
 
     tc = pack_table(load_table(*FUSED_TABLE), dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    out = {}
-    for label, shape in FUSED_SHAPES.items():
-        x = (torch.randn(shape, generator=gen, device=dev) * 4.0
-             ).to(torch.bfloat16)
-        got = ppa_fused_apply(tc, x, True, launch=launch)
-        if not torch.equal(got, ppa_fused_plain(tc, x, True)):
-            raise AssertionError(f"fused launch {launch} changed the output "
-                                 f"at {label} {shape}: launch shapes must "
-                                 f"be bit-neutral")
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                ppa_fused_apply(tc, x, True, launch=launch)
-        graph.replay()
-        times = []
-        for _ in range(repeats):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / iters)
-        times.sort()
-        out[label] = times[len(times) // 2]
-        del graph
+    xs = {label: (torch.randn(shape, generator=gen, device=dev) * 4.0
+                  ).to(torch.bfloat16)
+          for label, shape in FUSED_SHAPES.items()}
+    graphs = {}
+    before = fused.default_launch()
+    try:
+        for launch in candidates:
+            fused.set_default_launch(launch)
+            for label, x in xs.items():
+                got = fused.ppa_fused_apply(tc, x, True)
+                if not torch.equal(got, fused.ppa_fused_plain(tc, x, True)):
+                    raise AssertionError(
+                        f"fused launch {launch} changed the output at "
+                        f"{label} {tuple(x.shape)}: launch shapes must be "
+                        f"bit-neutral")
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    for _ in range(iters):
+                        fused.ppa_fused_apply(tc, x, True)
+                graph.replay()
+                graphs[launch, label] = graph
+    finally:
+        fused.set_default_launch(before)
+    out = {launch: {label: [] for label in xs} for launch in candidates}
+    order = list(candidates)
+    for r in range(repeats):
+        k = r % len(order)
+        for launch in order[k:] + order[:k]:
+            for label in xs:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graphs[launch, label].replay()
+                end.record()
+                end.synchronize()
+                out[launch][label].append(start.elapsed_time(end) / iters)
     return out
+
+
+def _median(values: Sequence[float]) -> float:
+    return sorted(values)[len(values) // 2]
+
+
+def pick_launch(sums: Dict[Tuple[int, int], List[float]]
+                ) -> Tuple[Tuple[int, int], float, float]:
+    """(winner, margin, spread) from each launch's summed time a repeat.
+
+    The candidate with the least median sum wins only where it beats
+    ``DEFAULT_LAUNCH``'s median by more than the spread (max - min) of
+    either one's repeats; otherwise the default is kept, since a shape
+    that wins within the noise would be a pick that no measurement backs.
+    ``margin`` is the default's median less the best's."""
+    best = min(sums, key=lambda lc: (_median(sums[lc]),
+                                     lc != DEFAULT_LAUNCH))
+    margin = _median(sums[DEFAULT_LAUNCH]) - _median(sums[best])
+    spread = max(max(sums[lc]) - min(sums[lc])
+                 for lc in (DEFAULT_LAUNCH, best))
+    return (best if margin > spread else DEFAULT_LAUNCH), margin, spread
 
 
 def tune_fused_launch(dev, candidates: Sequence[Tuple[int, int]],
                       score: Dict[str, float], *, repeats: int = 5,
                       log=print) -> Tuple[int, int]:
-    """Stage 3: the candidate launch with the least summed device time
-    over ``FUSED_SHAPES`` on the card ``dev``; each time lands in
-    ``score`` (``fused_ms/<threads>x<blocks>/<shape>``).  Off a card there
-    is no kernel to time: the default is returned."""
+    """Stage 3: the fused kernel's launch shape on the card ``dev``, by
+    :func:`pick_launch` over each candidate's summed device time on
+    ``FUSED_SHAPES`` (the default is always timed).  Each median lands in
+    ``score`` (``fused_ms/<threads>x<blocks>/<shape>``), with the best
+    candidate's margin over the default and the spread it had to beat
+    (``fused_margin_ms``, ``fused_spread_ms``).  Off a card there is no
+    kernel to time: the default is returned."""
     if dev is None or dev.type != "cuda":
         log(f"[tune] stage 3: no card ({dev or 'none'}), so no fused "
             f"kernel to time; recording the default launch "
             f"{DEFAULT_LAUNCH[0]}x{DEFAULT_LAUNCH[1]}")
         return DEFAULT_LAUNCH
-    best = (float("inf"), DEFAULT_LAUNCH)
-    for launch in candidates:
-        times = fused_launch_times(launch, dev, repeats=repeats)
+    launches = tuple(dict.fromkeys((DEFAULT_LAUNCH, *candidates)))
+    times = fused_launch_times(launches, dev, repeats=repeats)
+    sums = {}
+    for launch, by_shape in times.items():
         tag = f"{launch[0]}x{launch[1]}"
-        for label, ms in times.items():
-            score[f"fused_ms/{tag}/{label}"] = round(ms, 6)
-        total = sum(times.values())
+        sums[launch] = [sum(rep) for rep in zip(*by_shape.values())]
+        for label, ms in by_shape.items():
+            score[f"fused_ms/{tag}/{label}"] = round(_median(ms), 6)
         log(f"[tune] fused launch {tag}: " + ", ".join(
-            f"{label} {ms * 1e3:.3f} us" for label, ms in times.items())
-            + f" (sum {total * 1e3:.3f} us; output equal to the plain "
-            f"version's)")
-        if total < best[0]:
-            best = (total, launch)
-    log(f"[tune] fused launch winner {best[1][0]}x{best[1][1]}")
-    return best[1]
+            f"{label} {_median(ms) * 1e3:.3f} us"
+            for label, ms in by_shape.items())
+            + f" (sum {_median(sums[launch]) * 1e3:.3f} us, repeats "
+            f"{min(sums[launch]) * 1e3:.3f}-{max(sums[launch]) * 1e3:.3f};"
+            f" output equal to the plain version's)")
+    winner, margin, spread = pick_launch(sums)
+    score["fused_margin_ms"] = round(margin, 6)
+    score["fused_spread_ms"] = round(spread, 6)
+    log(f"[tune] fused launch winner {winner[0]}x{winner[1]}: the best "
+        f"candidate beats the default {DEFAULT_LAUNCH[0]}x"
+        f"{DEFAULT_LAUNCH[1]} by {margin * 1e3:.3f} us against a spread of "
+        f"{spread * 1e3:.3f} us"
+        + ("" if winner != DEFAULT_LAUNCH or margin <= 0 else
+           " (within the noise: the default is kept)"))
+    return winner
 
 
 def autotune(root: "str | Path | None" = None, *, smoke: bool = False,

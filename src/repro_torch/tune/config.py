@@ -20,8 +20,9 @@ written before ``fused_launch`` existed loads with its default.
 Resolution order for a knob (highest wins):
 
   1. an explicit argument (``compile_table(speculate=...)``,
-     ``compile_or_load(search_backend=...)``, a ``CompileJob`` field, an
-     explicit ``launch=`` at a ``ppa_fused_apply`` call)
+     ``compile_or_load(search_backend=...)``, a ``CompileJob`` field;
+     the fused launch shape has no per-call argument: it is the process
+     default, which ``activate`` sets through ``set_default_launch``)
   2. the operator env var ``$REPRO_TORCH_SEARCH_BACKEND`` — a host-level
      override beats a stale tuning file without a re-tune
   3. the persisted TunedConfig for this device

@@ -5,7 +5,10 @@ sweep under three armed crash workers and a survivor (each a fresh
 interpreter armed through ``REPRO_TORCH_FAILPOINTS``, the exactly-once
 ledger through ``REPRO_TORCH_FAULTS_LEDGER``), the killed merge, and the
 serve leg on internlm2-1.8b's smoke config.  The serve leg's gates are
-shown to fire: a second degraded tenant fails it.  Stores are written
+shown to fire: a second degraded tenant fails it.  The live sweep's and
+the merge's stores are held, file for file, to the reference's serial
+compile of the same grid (``repro.compiler.compile_batch``), so the
+harness's own serial baseline is not the only witness.  Stores are written
 only under ``tmp_path``; only 7-bit tables compile, and the serve leg's
 tables are the shipped ones."""
 
@@ -52,6 +55,19 @@ def test_smoke_runs_every_leg_on_the_cpu(tmp_path, capsys):
     # every worker's compile is in the ledger once, on the asked backend
     lines = (tmp_path / "compiles.ledger").read_text().splitlines()
     assert len(lines) == 6 and all('"torch@cpu"' in ln for ln in lines)
+    # the reference's serial compile of the same grid, byte for byte
+    import repro.compiler as RC
+    ref = tmp_path / "reference"
+    RC.compile_batch(RC.paper_grid("smoke", nafs=chaos._NAFS),
+                     store=RC.TableStore(ref), processes=1)
+    want = _artifacts(ref)
+    assert len(want) == 6
+    for leg in ("serial", "live", "merged"):
+        assert _artifacts(tmp_path / leg) == want, leg
+
+
+def _artifacts(root):
+    return {p.name: p.read_bytes() for p in sorted(root.glob("*.json"))}
 
 
 @pytest.fixture(scope="module")

@@ -102,10 +102,13 @@ def test_cuda_fused_kernel_at_every_launch(launch, dtype):
                 x = x[1:]           # not 16-byte aligned: no vectors
             x = (x * tc.interval[1]).to(getattr(torch, dtype))
             for gate in (False, True):
-                assert torch.equal(
-                    fused.ppa_fused_apply(tc, x, gate, launch=launch),
-                    fused.ppa_fused_plain(tc, x, gate)), (naf, bits, shape,
-                                                          gate)
+                fused.set_default_launch(launch)
+                try:
+                    got = fused.ppa_fused_apply(tc, x, gate)
+                finally:
+                    fused.set_default_launch(None)
+                assert torch.equal(got, fused.ppa_fused_plain(tc, x, gate)
+                                   ), (naf, bits, shape, gate)
 
 
 @pytest.mark.gpu

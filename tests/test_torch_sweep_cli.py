@@ -1,12 +1,17 @@
 """The port's sweep CLI (``scripts/torch_sweep.py``) on the CPU.
 
 * two hosts of the smoke grid (one on numpy, one on ``torch`` scanning on
-  the CPU) plus ``--merge-from`` give the artifacts of ``run_shard``'s
-  serial store, byte for byte;
+  the CPU) plus ``--merge-from`` give, byte for byte, the host stores and
+  the merged store that the reference's CLI (``scripts/sweep.py``) gives
+  with the same arguments, and ``run_shard``'s serial store;
 * a key under another host's live claim is deferred, and the CLI exits 3
-  in sharded and live mode; ``--list`` shows the claim;
+  in sharded and live mode as the reference's does, with the same report
+  and the same ``--list`` rows;
 * ``--retune`` runs the port's tuner, and the tuned config (its
-  ``fused_launch`` included) is listed and drives the compiles.
+  ``fused_launch`` included) is listed and drives the compiles;
+* the backend that compiles follows the reference CLI's precedence:
+  ``--backend``, then ``$REPRO_TORCH_SEARCH_BACKEND``, then the tuned
+  file.
 
 Stores are written only under ``tmp_path``; only 7-bit tables compile."""
 
@@ -34,14 +39,16 @@ SCRIPT = ROOT / "scripts" / "torch_sweep.py"
 NAFS = ("tanh", "exp2_frac")
 
 
-def _load():
-    spec = importlib.util.spec_from_file_location("torch_sweep", SCRIPT)
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-cli = _load()
+cli = _load("torch_sweep", SCRIPT)
+#: the reference's CLI, the JAX package's ``scripts/sweep.py``
+ref_cli = _load("ref_sweep", ROOT / "scripts" / "sweep.py")
 
 
 @pytest.fixture(autouse=True)
@@ -69,6 +76,12 @@ def _artifacts(root):
     return {p.name: p.read_bytes() for p in sorted(root.glob("*.json"))}
 
 
+def _report(r):
+    """A shard report without what differs from run to run."""
+    return {k: v for k, v in r.items()
+            if k not in ("compiled_by", "wall_s", "owner")}
+
+
 def test_two_hosts_and_merge_equal_the_serial_store(tmp_path, capsys):
     smoke = ["--preset", "smoke", "--nafs", *NAFS, "--hosts", "2",
              "--processes", "1", "--json"]
@@ -84,7 +97,25 @@ def test_two_hosts_and_merge_equal_the_serial_store(tmp_path, capsys):
     assert cli.main(["--store", str(tmp_path / "merged"), "--merge-from",
                      str(tmp_path / "h0"), str(tmp_path / "h1"),
                      "--json"]) == 0
-    assert _json(capsys)["stats"]["imported"] == 6
+    merge = _json(capsys)
+    assert merge["stats"]["imported"] == 6
+    # the reference's CLI, the same arguments (its hosts on numpy)
+    ref = []
+    for i in (0, 1):
+        assert ref_cli.main([*smoke, "--host-id", str(i), "--backend",
+                             "numpy", "--store",
+                             str(tmp_path / f"ref_h{i}")]) == 0
+        ref.append(_json(capsys))
+    assert ref_cli.main(["--store", str(tmp_path / "ref_merged"),
+                         "--merge-from", str(tmp_path / "ref_h0"),
+                         str(tmp_path / "ref_h1"), "--json"]) == 0
+    assert merge["stats"] == _json(capsys)["stats"]
+    for ours, theirs, i in ((r0, ref[0], 0), (r1, ref[1], 1)):
+        assert ours["compiled"] and _report(ours) == _report(theirs)
+        assert _artifacts(tmp_path / f"h{i}") == _artifacts(
+            tmp_path / f"ref_h{i}")
+    assert _artifacts(tmp_path / "merged") == _artifacts(
+        tmp_path / "ref_merged")
     jobs = paper_grid("smoke", nafs=NAFS)
     serial = run_shard(jobs, store=TableStore(tmp_path / "serial"),
                        processes=1)
@@ -115,11 +146,30 @@ def test_a_deferred_key_exits_3(tmp_path, capsys, mode):
     report = _json(capsys)
     assert report["deferred"] == [job.key()]
     assert len(report["compiled"]) == 2
-    assert cli.main(["--preset", "smoke", "--nafs", "tanh", "--store",
-                     str(tmp_path), "--list", "--json"]) == 0
-    states = {r["key"]: r["state"] for r in _json(capsys)["jobs"]}
-    assert states.pop(job.key()).startswith("claimed")
+    listing = ["--preset", "smoke", "--nafs", "tanh", "--mode", mode,
+               "--list", "--json"]
+    assert cli.main([*listing, "--store", str(tmp_path)]) == 0
+    rows = _json(capsys)["jobs"]
+    states = {r["key"]: r["state"] for r in rows}
+    assert states.pop(job.key()) == "claimed-by-other-host"
     assert set(states.values()) == {"stored"}
+    # the reference's CLI on the same claim: the same exit code, report
+    # and listing
+    import repro.compiler as RC
+    import repro.core as RK
+    ref_store = tmp_path / "ref"
+    assert RC.TableStore(ref_store).try_claim(RC.CompileJob(
+        "tanh", RK.FWLConfig(7, 7, (7,), (7,), 7),
+        RK.PPAScheme(1, None, "fqa")).key(), owner="other-host")
+    ref_args = [*args[:args.index("--store")], "--store", str(ref_store),
+                *args[args.index("--store") + 2:]]
+    assert ref_cli.main(ref_args) == 3
+    ref_report = _json(capsys)
+    assert sorted(ref_report["compiled"]) == sorted(report["compiled"])
+    assert ref_report["deferred"] == report["deferred"]
+    assert _artifacts(ref_store) == _artifacts(tmp_path)
+    assert ref_cli.main([*listing, "--store", str(ref_store)]) == 0
+    assert _json(capsys)["jobs"] == rows
     if mode == "sharded":
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         env.pop(BACKEND_ENV, None)
@@ -149,3 +199,29 @@ def test_retune_persists_and_drives_the_sweep(tmp_path, capsys):
     report = _json(capsys)
     assert {w["backend"] for w in report["compiled_by"].values()} == {
         "numpy"}
+
+
+@pytest.mark.parametrize("flag, env, want", [
+    (None, None, "torch@cpu"),            # the tuned file
+    (None, "numpy", "numpy"),             # the variable beats the file
+    ("torch", "numpy", "torch@cpu"),      # the flag beats the variable
+    ("numpy", None, "numpy"),             # the flag beats the file
+])
+def test_knob_precedence_flag_env_tuned(tmp_path, capsys, monkeypatch,
+                                        flag, env, want):
+    """Which backend compiles: ``--backend`` over
+    ``$REPRO_TORCH_SEARCH_BACKEND`` over the tuned file next to the store
+    (here one that names ``torch`` on the host), as in the reference's
+    CLI."""
+    tune_config.save_tuned(tune_config.TunedConfig(
+        device="cpu/host", search_backend="torch", speculate=0), tmp_path)
+    if env is not None:
+        monkeypatch.setenv(BACKEND_ENV, env)
+    args = ["--preset", "smoke", "--nafs", "tanh", "--store", str(tmp_path),
+            "--processes", "1", "--json"]
+    if flag is not None:
+        args += ["--backend", flag, "--device", "cpu"]
+    assert cli.main(args) == 0
+    report = _json(capsys)
+    assert len(report["compiled"]) == 3
+    assert {w["backend"] for w in report["compiled_by"].values()} == {want}

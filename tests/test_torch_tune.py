@@ -97,8 +97,9 @@ def test_fused_launch_is_checked(launch):
     """A launch the kernel cannot take is refused before any launch."""
     with pytest.raises(ValueError, match="fused launch"):
         fused.set_default_launch(launch)
+    assert fused.default_launch() == fused.DEFAULT_LAUNCH
     with pytest.raises(ValueError, match="fused launch"):
-        fused.ppa_fused_apply(None, torch.zeros(4), launch=launch)
+        activate(_tuned(fused_launch=launch))
     assert fused.default_launch() == fused.DEFAULT_LAUNCH
 
 
@@ -110,8 +111,38 @@ def test_plain_version_ignores_the_launch():
     x = torch.linspace(-9.0, 9.0, 4099)
     want = fused.ppa_fused_plain(tc, x, True)
     for launch in fused.LAUNCH_CANDIDATES:
-        assert torch.equal(fused.ppa_fused_apply(tc, x, True, launch=launch),
-                           want)
+        fused.set_default_launch(launch)
+        assert torch.equal(fused.ppa_fused_apply(tc, x, True), want)
+
+
+def _sums(default, other):
+    return {fused.DEFAULT_LAUNCH: default, (256, 4): other}
+
+
+@pytest.mark.parametrize("default, other, winner", [
+    # a candidate that wins within the noise does not displace the default
+    ([3.0, 3.2, 3.4], [2.9, 3.1, 3.3], fused.DEFAULT_LAUNCH),
+    # nor one whose margin is inside its own spread, the default's narrow
+    ([3.0, 3.0, 3.0], [2.0, 2.5, 3.2], fused.DEFAULT_LAUNCH),
+    # a margin beyond either spread wins
+    ([3.0, 3.1, 3.2], [2.0, 2.1, 2.2], (256, 4)),
+    # a slower candidate never does
+    ([2.0, 2.1, 2.2], [3.0, 3.1, 3.2], fused.DEFAULT_LAUNCH),
+])
+def test_stage3_keeps_the_default_within_the_noise(default, other, winner):
+    """Stage 3's pick from summed times a repeat: the least median wins
+    only by more than the spread of its repeats and the default's."""
+    from repro_torch.tune.autotune import pick_launch
+    got, margin, spread = pick_launch(_sums(default, other))
+    assert got == winner
+    assert margin == pytest.approx(default[1] - min(default[1], other[1]))
+    assert spread >= max(default) - min(default)
+
+
+def test_stage3_pick_on_a_tie_is_the_default():
+    from repro_torch.tune.autotune import pick_launch
+    assert pick_launch({(256, 4): [1.0, 1.0], fused.DEFAULT_LAUNCH:
+                        [1.0, 1.0]}) == (fused.DEFAULT_LAUNCH, 0.0, 0.0)
 
 
 def test_tuned_file_never_collides_with_the_reference(tmp_path):
