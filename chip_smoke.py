@@ -67,16 +67,43 @@ Phases (any failure exits non-zero and prints no result line):
             every decode step (``decode_launches``: the expert buffer, the
             shared experts' and the dense layer's gates, the scores), no
             plain version runs; launches by shape, decode ms per step,
-            tokens/s, peak memory
-11. parity_moe  moonshot at full width, 2 layers (the dense one and one
+            tokens/s, peak memory; then the same requests served again
+            with the routed expert ids recorded (their tokens equal the
+            timed run's; its decode ms is the sharded phase's yardstick)
+11. serve_moe_sharded  serve_moe's parameters (kept, not drawn again)
+            and requests through ``ServeEngine(ctx=make_ctx(mesh))`` on a
+            ("data", "model") DeviceMesh of (1, 1) over an NCCL process
+            group of one rank (a FileStore; no gloo), once with
+            moe_mode="weight_gather" and once "token_gather": the greedy
+            tokens and the routed expert ids of every MoE layer and call
+            equal the local serve_moe run's exactly (each mode's serve
+            records its ids; its decode ms is set beside serve_moe's
+            second serve's, which records them too), every MoE layer of
+            every step all-reduced over "model" and all-gathered over
+            "data" (``distributed.collectives.counts``; one decode step's
+            c10d ops seen under an ``OpCosts`` counter), the fused kernel
+            launched at least layers x steps times, no plain version
+12. roofline  untimed counting passes under ``roofline.OpCosts``: one
+            decode step and one prefill group of the serve phase's
+            internlm2-1.8b engine, one decode step of serve_moe's moonshot
+            (local, and sharded on the (1, 1) mesh) and the train phase's
+            step 0: FLOPs, bytes, collective bytes, the three terms
+            against the H100's published peaks (``HW_H100``), the
+            bottleneck, model FLOPs and the decode's ideal bytes (active
+            parameters in bf16 plus the KV cache), beside the phase's
+            measured median step time and the share t_useful / measured;
+            every kernel launch's self-reported bytes equal its bound's at
+            its shape, as many reports as launches, and each decode's
+            counted bytes at least its ideal bytes; no speed gate
+13. parity_moe  moonshot at full width, 2 layers (the dense one and one
             MoE), float32: the parity phase's three arms and controls; the
             routed expert ids of every layer and call equal in all arms
-12. flash   internlm2-1.8b at full width, 2 layers, bf16, one prompt of
+14. flash   internlm2-1.8b at full width, 2 layers, bf16, one prompt of
             16384 tokens, attn_impl="flash" with chunks of 1024: the
             cuda_fused arm's final hidden states and logits equal the ref
             arm's, the fused kernel launched at the chunk shape, no plain
             version in the kernel arm
-13. serve_hybrid  full-width hymba-1.5b (32 layers in 5 stages: attention
+15. serve_hybrid  full-width hymba-1.5b (32 layers in 5 stages: attention
             and a selective SSM in parallel, global attention at layers 0,
             15 and 31, windows of 1024 elsewhere; random bf16 weights from
             seed 0), act_impl="ppa", cuda_fused, the serve phase's engine
@@ -85,14 +112,14 @@ Phases (any failure exits non-zero and prints no result line):
             softmax kernels launch at least layers x engine steps times
             and at each decode launch of every layer at every decode step
             (``decode_launches``), no plain version runs
-14. parity_hybrid  hymba at full width, its first two stages (global
+16. parity_hybrid  hymba at full width, its first two stages (global
             and windowed attention) at 1 layer each, float32: the parity
             phase's three arms and controls (HYBRID_PARITY_STAGES)
-15. serve_rwkv  full-width rwkv6-3b (32 layers, 40 heads of 64,
+17. serve_rwkv  full-width rwkv6-3b (32 layers, 40 heads of 64,
             attention-free) as serve_hybrid; the softmax never launches
-16. parity_rwkv  rwkv at full width, 2 layers, float32: no softmax, so
+18. parity_rwkv  rwkv at full width, 2 layers, float32: no softmax, so
             the three arms must be equal bit for bit
-17. serve_whisper  full-width whisper-medium (a 24-layer encoder on 1500
+19. serve_whisper  full-width whisper-medium (a 24-layer encoder on 1500
             frames and 24 ``xdec`` layers: self-attention, cross attention
             to the encoder's output, a plain MLP with gelu; layernorm; random
             bf16 weights from seed 0), act_impl="ppa", cuda_fused, the serve
@@ -100,17 +127,17 @@ Phases (any failure exits non-zero and prints no result line):
             embeddings ``enc_feats`` N(0, 0.1) of (1500, 1024) from the
             seeded generator: as serve_hybrid, with the softmax at every
             self- and cross-attention launch of every decode step
-18. parity_whisper  whisper at full width, 1 encoder and 1 decoder layer,
+20. parity_whisper  whisper at full width, 1 encoder and 1 decoder layer,
             float32, a float32 decode cache (WHISPER_PARITY_LAYERS): the
             parity phase's three arms and controls, the gelu table's
             inputs counted as the silu's are
-19. serve_vlm  full-width internvl2-26b (48 ``dec`` layers of d_model 6144
+21. serve_vlm  full-width internvl2-26b (48 ``dec`` layers of d_model 6144
             after 256 vision tokens, 36.99 GiB of bf16 weights), each
             request with its own patch embeddings ``vision_embeds`` N(0,
             0.02) of (256, 6144): as serve_whisper
-20. parity_vlm  internvl at full width, 2 layers, float32, the vision
+22. parity_vlm  internvl at full width, 2 layers, float32, the vision
             prefix before each prompt: the parity phase's arms and controls
-21. compile the FQA compiler on the card: the six 16-bit deployment tables
+23. compile the FQA compiler on the card: the six 16-bit deployment tables
             (``ppa_table_jobs("ppa")``) compiled by ``TorchSearchBackend``
             through ``compile_or_load`` into a fresh store, each equal to
             the shipped JSON; then each compiled again by the port's numpy
@@ -118,14 +145,14 @@ Phases (any failure exits non-zero and prints no result line):
             ``table_identity`` with the same candidate evaluations; per
             table both wall times, candidate evaluations a second and the
             card's dispatches (one host sync each)
-22. workflow  the paper's hardware-constrained flow (Fig. 7): sigmoid at
+24. workflow  the paper's hardware-constrained flow (Fig. 7): sigmoid at
             SEG_t 16, order 1 and 2 (8-bit FWLs), on the card's backend
             through one CompilerSession; the winner resolved through a
             store twice, the second a disk hit with no session call, then
             packed on the card and run through ``ppa_apply``/``ppa_gate``
             on ``cuda_fused`` and ``cuda_int``, each equal to the plain
             version bit for bit
-23. sweep   the six 8-bit deployment tables (``ppa_table_jobs("ppa8")``)
+25. sweep   the six 8-bit deployment tables (``ppa_table_jobs("ppa8")``)
             compiled on ``TorchSearchBackend`` by ``run_shard`` on two
             simulated hosts at once (each its own store and a pool of
             spawned processes), merged, and by two spawned ``run_live``
@@ -140,7 +167,7 @@ Phases (any failure exits non-zero and prints no result line):
             ``--merge-from``: the merged store equal to a serial numpy
             compile of the smoke grid by ``table_identity``, each key
             compiled on the card
-24. tune    ``autotune(smoke=True)`` on the card into a fresh store and its
+26. tune    ``autotune(smoke=True)`` on the card into a fresh store and its
             verification, stage 3 included (the fused kernel's launch
             shape: each candidate's device time at the served model's
             decode and prefill gate, its output equal to the plain
@@ -152,12 +179,12 @@ Phases (any failure exits non-zero and prints no result line):
             its ``fused_launch`` and gives the serve phase's tokens, the
             fused and softmax kernels launched at least layers x steps
             times and no plain version; the default launch is restored
-25. serve_store  the serve phase through ``ServeEngine(table_store=<the
+27. serve_store  the serve phase through ``ServeEngine(table_store=<the
             compile phase's store>)``: the engine resolves its six tables
             there (hits, no compile), they pack to the shipped constants,
             the greedy tokens are the serve phase's and its launch gates
             hold
-26. tenants one ``TenantFront`` on that store serving full-width
+28. tenants one ``TenantFront`` on that store serving full-width
             internlm2-1.8b (24 layers, bf16) as tenant a (ppa) and b
             (ppa8), admitted warm, and c (ppa), admitted cold with
             ``serve.tenant.build`` armed and no exact fallback, on one set
@@ -169,7 +196,7 @@ Phases (any failure exits non-zero and prints no result line):
             least layers x steps times in each of a's and b's engines, no
             plain version runs; decode ms a step a tenant, warm admission
             seconds, peak memory
-27. chaos   ``scripts/torch_chaos.py``'s three legs: the smoke grid's live
+29. chaos   ``scripts/torch_chaos.py``'s three legs: the smoke grid's live
             sweep under three armed crash workers and a survivor, all
             spawned and scanning on the card (grid complete, artifacts
             byte-identical to a serial baseline, nothing quarantined, each
@@ -191,7 +218,7 @@ that run launched the integer, fused or softmax kernel (the fused kernel's
 by dtype, table and gate too: ``launched_shapes``) is held to the plain
 version and timed beside its bound (``path_rows``), and its row in the
 kernels line carries those launches (``launches_by_path`` adds the
-tune, serve_store, tenants and chaos runs).  The last two lines are a JSON
+serve_moe_sharded, tune, serve_store, tenants and chaos runs).  The last two lines are a JSON
 object with one entry per kernel, then ``{"ok": true, "device": {...}}``.
 """
 
@@ -209,17 +236,14 @@ import time
 import traceback
 from pathlib import Path
 
-# Published H100 SXM peaks at 700 W: device memory bandwidth, and the
-# float32 rate outside the tensor cores, 67 TFLOP/s with an FMA counted as
-# two.  These kernels issue no FMA, so one float32 operation is one lane
-# instruction: 128 float32 lanes per SM per clock give 33.5 T op/s, which
-# is also the rate at which the four schedulers of an SM issue lane
-# instructions of any kind.  An SM has 64 int32 lanes, half the float32
-# ones: 16.75 T op/s.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12 / 2
-INT32_OPS_PER_S = FP32_OPS_PER_S / 2
-ISSUE_OPS_PER_S = FP32_OPS_PER_S
+# The kernels' bounds on the H100 (its published peaks at 700 W) are the
+# package's, whose formulas the kernel wrappers report their work to an
+# OpCosts counter with (HBM_BYTES_PER_S is read by scripts/torch_*.py):
+# this checkout's ``src`` first.
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.roofline.bounds import (  # noqa: E402,F401
+    HBM_BYTES_PER_S, fused_bound, int_bound, softmax_bound,
+    softmax_bwd_bound, table_bytes)
 
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 512, 8, 32
 PREFILL_ROWS = 4 * 128          # B * T of a full prefill group
@@ -347,82 +371,6 @@ def time_launch(fn, iters: int = 50, warmup: int = 5, replays: int = 4):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays), host_us
-
-
-def datapath_ops(order: int, round_mults: bool) -> int:
-    """int32 operations of select + Horner for one element: the least any
-    select needs (one index computation and one load), then the Horner
-    chain (multiply and shift per stage, two aligning shifts and an add per
-    concat adder and at the intercept, the final shift, a rounder add per
-    stage).  The segment count and the select algorithm do not enter: a
-    shorter search must not lower its own bound."""
-    return (2 + 2 * order + 3 * (order - 1) + 4
-            + (order if round_mults else 0))
-
-
-# Per element, around select + Horner.  fused: int32 sign fix (2), the
-# out-of-interval compare (1), clamp (2), saturation and symmetry selects
-# (2); float32 widen, abs, scale, +0.5, floor, to-int, to-float, /2^w_out,
-# sign compare, symmetry restore, gate product, narrow (12).  softmax:
-# int32 mask test (1) and clamp (2); float32 max, -m, *log2e, clamp, floor,
-# -k, scale, +0.5, floor, to-int, to-float, /2^w_out, ldexp, sum, /sum (15).
-FUSED_INT_OPS, FUSED_FP_OPS = 7, 12
-SOFTMAX_INT_OPS, SOFTMAX_FP_OPS = 3, 15
-# The softmax backward does the forward's work, then per score: g y, its
-# sum, the live test, g - c, / D, exp2, the product, the sum of d, the tie
-# test and the share's subtraction (10 float32).
-SOFTMAX_BWD_FP_OPS = SOFTMAX_FP_OPS + 10
-
-
-def bound(nbytes: float, int_ops: float, fp_ops: float = 0.0):
-    """Least time (ms) for the work, and whether bytes or operations set
-    it: the int32 lanes, the float32 lanes and the issue rate each bound
-    the operations."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(int_ops / INT32_OPS_PER_S, fp_ops / FP32_OPS_PER_S,
-                (int_ops + fp_ops) / ISSUE_OPS_PER_S)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def table_bytes(num_segments: int, order: int) -> int:
-    """The table's starts and coefficient rows, int32."""
-    return 4 * num_segments * (order + 2)
-
-
-def int_bound(n: int, num_segments: int, order: int, round_mults: bool):
-    """ppa_int on n int32 elements: 4 B in and 4 B out each."""
-    return bound(8 * n + table_bytes(num_segments, order),
-                 n * datapath_ops(order, round_mults))
-
-
-def fused_bound(n: int, itemsize: int, num_segments: int, order: int,
-                round_mults: bool, gate: bool = True):
-    """ppa_fused on n elements of ``itemsize`` bytes, read and written.
-    Without the gate there is no gate product, and a float32 input needs
-    no widening or narrowing: 12, 11, 10 or 9 float32 operations."""
-    fp_ops = FUSED_FP_OPS - (not gate) - 2 * (itemsize == 4)
-    return bound(2 * itemsize * n + table_bytes(num_segments, order),
-                 n * (datapath_ops(order, round_mults) + FUSED_INT_OPS),
-                 n * fp_ops)
-
-
-def softmax_bound(n: int, mask_bytes: int, num_segments: int, order: int,
-                  round_mults: bool):
-    """softmax_ppa on n float32 scores, read and written, and the mask at
-    its unexpanded size."""
-    return bound(8 * n + mask_bytes + table_bytes(num_segments, order),
-                 n * (datapath_ops(order, round_mults) + SOFTMAX_INT_OPS),
-                 n * SOFTMAX_FP_OPS)
-
-
-def softmax_bwd_bound(n: int, mask_bytes: int, num_segments: int,
-                      order: int, round_mults: bool):
-    """The softmax backward on n float32 scores: x and g read and dx
-    written, the mask at its unexpanded size."""
-    return bound(12 * n + mask_bytes + table_bytes(num_segments, order),
-                 n * (datapath_ops(order, round_mults) + SOFTMAX_INT_OPS),
-                 n * SOFTMAX_BWD_FP_OPS)
 
 
 # ---------------------------------------------------------------- phases
@@ -998,25 +946,31 @@ def _requests(cfg, n_requests, max_new, lens, seed: int = 0):
     return reqs
 
 
-def _serve(torch, dev, cfg, n_requests, max_new, lens, table_store=None):
+def _serve(torch, dev, cfg, n_requests, max_new, lens, table_store=None,
+           params=None, ctx=None):
     """Serve ``n_requests`` (``_requests``); returns (engine, requests,
     step times).  ``table_store``: the engine's ``TableStore`` (None: the
-    shipped JSON)."""
+    shipped JSON); ``params``: the bf16 parameters (None: drawn from seed
+    0); ``ctx``: the engine's ``ShardCtx``."""
+    from repro_torch.distributed.collectives import \
+        reset_counts as reset_collectives
     from repro_torch.kernels import reset_counts
     from repro_torch.models import init_params, param_specs
     from repro_torch.serve import ServeEngine
 
-    params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
-                         device=dev)
+    if params is None:
+        params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
+                             device=dev)
     eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
                       cache_len=SERVE_CACHE_LEN, table_store=table_store,
-                      device=dev)
+                      ctx=ctx, device=dev)
     del params
     eng.warmup(sorted(set(lens)))
     reqs = _requests(cfg, n_requests, max_new, lens)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
+    reset_collectives()
     for r in reqs:
         eng.submit(r)
     steps = []                       # (seconds, admitted requests)
@@ -1101,6 +1055,9 @@ def phase_serve(torch, dev, card, store=None):
     log(f"[{tag}] launches fused={counts['ppa_fused']['launches']} softmax="
         f"{counts['softmax_ppa']['launches']} (layers x steps = {need}); "
         f"by shape {by_shape}; plain calls {plain}")
+    if store is None:
+        _count_serve(torch, eng, "internlm2-1.8b", dec_ms,
+                     sorted(adm_ms)[len(adm_ms) // 2])
     if store is not None:
         log(f"[{tag}] ServeEngine(table_store=...) resolved its 6 tables "
             f"through the compile phase's store ({hits} hits, no compile); "
@@ -1176,8 +1133,14 @@ def phase_serve_full(torch, dev, card, arch, tag):
     cfg = get_config(arch).replace(act_impl="ppa", compute_dtype="bfloat16",
                                    act_backend="cuda_fused")
     lens = [32, 128, 64, 96, 48, 128, 80, 112][:SERVE_REQUESTS]
+    params = None
+    if arch == MOE_ARCH:
+        # kept for serve_moe_sharded and the roofline (52.9 GiB: built once)
+        from repro_torch.models import init_params, param_specs
+        params = LOADED[arch] = init_params(
+            param_specs(cfg), 0, dtype=torch.bfloat16, device=dev)
     eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
-                                    SERVE_NEW, lens)
+                                    SERVE_NEW, lens, params=params)
     counts, by_shape = read_counts(), launched_shapes()
     mem = torch.cuda.max_memory_allocated(dev)
     n_steps = len(steps)
@@ -1208,8 +1171,18 @@ def phase_serve_full(torch, dev, card, arch, tag):
     log(f"[{tag}] launches fused={counts['ppa_fused']['launches']} softmax="
         f"{counts['softmax_ppa']['launches']} (layers x steps = {need}); "
         f"by shape {by_shape}; plain calls {plain}")
+    if arch == MOE_ARCH:
+        TOKENS[tag] = [list(r.output) for r in reqs]
+        _count_serve(torch, eng, arch, dec_ms, None)
     del eng
     _free(torch)
+    if arch == MOE_ARCH:
+        ROUTES[tag], ROUTED_MS[tag] = _serve_routes(torch, dev, cfg, lens,
+                                                    params, TOKENS[tag])
+        log(f"[{tag}] served again with the routed ids recorded: "
+            f"the same tokens, {ROUTES[tag].numel()} ids, decode "
+            f"{ROUTED_MS[tag]:.2f} ms/step (median) with the recording on")
+    del params
     padded = [s for s in shapes if s[0] not in lens]
     if any(st.kind in RECURRENT_KINDS for st in cfg.stages) and padded:
         raise AssertionError(f"{arch}: padded prefill groups {padded}")
@@ -1239,6 +1212,298 @@ def phase_serve_full(torch, dev, card, arch, tag):
     log_rows(tag, rows)
     return {"ppa_fused": {"total": counts["ppa_fused"]["launches"]},
             "softmax_ppa": {"total": sm}}, rows
+
+
+#: parameters kept for a later phase, by arch (serve_moe's for
+#: serve_moe_sharded and the roofline), the routed expert ids of a serve
+#: run by tag and that run's median decode ms with the recording on, and
+#: the roofline's counting passes by name
+LOADED = {}
+ROUTES = {}
+ROUTED_MS = {}
+ROOFLINE = {}
+
+
+class _recorded_routes:
+    """Within the block, ``moe._route`` also records the routed expert ids
+    of every MoE layer and call (on the card, one small copy each); the
+    list is concatenated to one host tensor on exit."""
+
+    def __init__(self, torch):
+        self.torch, self.ids = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.route = moe._route
+
+        def recorded(x2, router, mcfg):
+            out = self.route(x2, router, mcfg)
+            self.ids.append(out[0].flatten().clone())
+            return out
+
+        moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.route
+        if self.ids:
+            self.ids = self.torch.cat(self.ids).cpu()
+        return False
+
+
+def _serve_routes(torch, dev, cfg, lens, params, tokens):
+    """The routed expert ids of every MoE layer and call of a serve run,
+    and its median decode ms with the recording on: the timed run's
+    requests served again on a new engine with ``_recorded_routes`` on
+    (so the timed run carries no recording); its greedy tokens must equal
+    the timed run's ``tokens``."""
+    with _recorded_routes(torch) as routes:
+        eng, reqs, steps, _ = _serve(torch, dev, cfg, SERVE_REQUESTS,
+                                     SERVE_NEW, lens, params=params)
+    del eng
+    _free(torch)
+    if [list(r.output) for r in reqs] != tokens:
+        raise AssertionError("the untimed serve that records the routes "
+                             "gave other tokens than the timed serve")
+    decode = sorted(t for t, adm in steps if adm == 0)
+    return routes.ids, decode[len(decode) // 2] * 1e3
+
+
+def _cache_bytes(cache) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(cache))
+
+
+def _count_serve(torch, eng, arch, dec_ms, prefill_ms, name=None):
+    """The roofline's untimed counting passes over ``eng`` (drained): one
+    decode step of all its slots on a fresh cache and, with
+    ``prefill_ms``, one prefill of its largest group shape, each under an
+    ``OpCosts`` counter; kept in ROOFLINE with the measured times and the
+    decode's ideal bytes (active parameters in bf16 plus the KV cache, as
+    the reference's dry run counts them)."""
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.models import (decode_step, init_cache, param_specs,
+                                    prefill)
+    from repro_torch.roofline import OpCosts, active_params
+    cfg, dev = eng.cfg, eng.device
+    name = name or arch
+    n_active = active_params(cfg, param_specs(cfg))
+    cache = init_cache(cfg, eng.n_slots, eng.cache_len, device=dev)
+    toks = torch.zeros((eng.n_slots, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((eng.n_slots,), eng.cache_len // 2, dtype=torch.int32,
+                     device=dev)
+    reset_counts()
+    with torch.inference_mode(), OpCosts() as costs:
+        decode_step(eng.params, cfg, cache, toks, pos, eng.acts, eng.ctx)
+        torch.cuda.synchronize()
+    ROOFLINE[f"{name} decode"] = dict(
+        costs=costs, cfg=cfg, kind="decode", tokens=eng.n_slots,
+        n_active=n_active, measured_ms=dec_ms, launches=read_counts(),
+        ideal_bytes=n_active * 2 + _cache_bytes(cache),
+        shape=f"decode {eng.n_slots} slots x cache {eng.cache_len}")
+    del cache
+    if prefill_ms is None:
+        return
+    blen, g = max(eng.prefill_shapes)
+    feed = {"tokens": torch.zeros((g, blen), dtype=torch.int32, device=dev)}
+    last = torch.full((g,), blen - 1, dtype=torch.long, device=dev)
+    reset_counts()
+    with torch.inference_mode(), OpCosts() as costs:
+        prefill(eng.params, cfg, feed, eng.cache_len, eng.acts,
+                last_idx=last, ctx=eng.ctx)
+        torch.cuda.synchronize()
+    ROOFLINE[f"{name} prefill"] = dict(
+        costs=costs, cfg=cfg, kind="prefill", tokens=g * blen,
+        n_active=n_active, measured_ms=prefill_ms, launches=read_counts(),
+        ideal_bytes=0.0, shape=f"prefill group {g} x {blen} tokens")
+
+
+def _nccl_mesh(torch, dev):
+    """A ("data", "model") DeviceMesh of shape (1, 1) over an NCCL process
+    group of one rank, bootstrapped through a FileStore; NCCL's
+    communicator is made at once (``device_id``), so a failed NCCL init
+    fails here."""
+    import os
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    path = STORE_DIR.parent / f"nccl_store_{os.getpid()}"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(path), 1),
+                            rank=0, world_size=1, device_id=dev)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group backend {dist.get_backend()}")
+    return init_device_mesh("cuda", (1, 1),
+                            mesh_dim_names=("data", "model")), path
+
+
+def phase_serve_moe_sharded(torch, dev, card):
+    """serve_moe's full-width moonshot params and requests through
+    ``ServeEngine(ctx=make_ctx(mesh))`` on a ("data", "model") mesh of
+    (1, 1) over NCCL, once in each MoE mode: the greedy tokens and the
+    routed expert ids equal the local serve's exactly (at one rank every
+    collective is the identity), the collectives ran (their counts, and
+    one decode step's c10d ops under an ``OpCosts`` counter), the fused
+    kernel launched at least layers x steps times and no plain version
+    ran.  The token_gather engine's decode step is counted for the
+    roofline.  Returns the two runs' launches of each kernel."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_ctx
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import read_counts
+
+    params = LOADED[MOE_ARCH]
+    base = get_config(MOE_ARCH).replace(act_impl="ppa",
+                                        compute_dtype="bfloat16",
+                                        act_backend="cuda_fused")
+    n_moe = sum(st.n_layers for st in base.stages if st.moe)
+    totals = collections.Counter()
+    mesh, store_path = _nccl_mesh(torch, dev)
+    try:
+        ctx = make_ctx(mesh)
+        lens = SERVE_LENS[:SERVE_REQUESTS]
+        for mode in ("weight_gather", "token_gather"):
+            cfg = base.replace(moe_mode=mode)
+            with _recorded_routes(torch) as routes:
+                eng, reqs, steps, wall = _serve(
+                    torch, dev, cfg, SERVE_REQUESTS, SERVE_NEW, lens,
+                    params=params, ctx=ctx)
+            counts, coll = read_counts(), dict(collectives.counts)
+            for k in ("ppa_fused", "softmax_ppa"):
+                totals[k] += counts[k]["launches"]
+            n_steps = len(steps)
+            decode = sorted(t for t, adm in steps if adm == 0)
+            dec_ms = decode[len(decode) // 2] * 1e3
+            toks = [list(r.output) for r in reqs]
+            plain = {k: c["plain"] for k, c in counts.items()
+                     if "plain" in c}
+            log(f"[serve_moe_sharded] {MOE_ARCH} {cfg.n_layers}L moe_mode="
+                f"{mode} on DeviceMesh {tuple(mesh.shape)} "
+                f"{mesh.mesh_dim_names} over {dist.get_backend()}: "
+                f"{sum(map(len, toks))} tokens in {wall:.3f}s over "
+                f"{n_steps} engine steps, decode {dec_ms:.2f} ms/step "
+                f"(median, routes recorded: serve_moe's second serve "
+                f"{ROUTED_MS['serve_moe']:.2f}); collectives {coll}; "
+                f"launches fused="
+                f"{counts['ppa_fused']['launches']} softmax="
+                f"{counts['softmax_ppa']['launches']}; plain {plain}; "
+                f"card {card}")
+            if toks != TOKENS["serve_moe"]:
+                raise AssertionError(f"{mode}: greedy tokens differ from "
+                                     "the local serve_moe run's")
+            need = cfg.n_layers * n_steps
+            if counts["ppa_fused"]["launches"] < need:
+                raise AssertionError(f"ppa_fused launched "
+                                     f"{counts['ppa_fused']['launches']} "
+                                     f"times < layers x steps = {need}")
+            if any(plain.values()):
+                raise AssertionError(f"plain versions ran: {plain}")
+            # every MoE layer of every step all-reduces over "model" and
+            # all-gathers over "data" (the weights, or the tokens)
+            for kind in ("all-reduce", "all-gather"):
+                if coll.get(kind, 0) < n_moe * n_steps:
+                    raise AssertionError(
+                        f"{mode}: {coll.get(kind, 0)} {kind} collectives "
+                        f"< MoE layers x steps = {n_moe * n_steps}")
+            if mode == "token_gather":
+                _count_serve(torch, eng, MOE_ARCH, dec_ms, None,
+                             name=f"{MOE_ARCH} sharded (1, 1)")
+                seen = ROOFLINE[f"{MOE_ARCH} sharded (1, 1) decode"][
+                    "costs"].coll_bytes
+                if not (seen.get("all-reduce") and seen.get("all-gather")):
+                    raise AssertionError(f"the dispatcher saw no NCCL "
+                                         f"collective: {dict(seen)}")
+            del eng
+            _free(torch)
+            if not torch.equal(routes.ids, ROUTES["serve_moe"]):
+                raise AssertionError(f"{mode}: routed expert ids differ "
+                                     "from the local serve_moe run's")
+            log(f"[serve_moe_sharded] {mode}: greedy tokens and "
+                f"{routes.ids.numel()} routed expert ids equal to the local "
+                f"serve_moe run's")
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    # the two runs' launches, each counted from 0 over its own run
+    return {k: {"total": n} for k, n in totals.items()}, {}
+
+
+def _kernel_bytes_check(costs) -> int:
+    """Each kernel launch's self-reported bytes against its bound's bytes
+    at the launched shape; returns the launches checked."""
+    for k in costs.kernels:
+        n = 1
+        for d in k["shape"]:
+            n *= d
+        table = table_bytes(k["segments"], k["order"])
+        want = {"ppa_int": lambda: 8 * n + table,
+                "ppa_fused": lambda: 2 * k["itemsize"] * n + table,
+                "softmax_ppa": lambda: 8 * n + k["mask_bytes"] + table,
+                "softmax_ppa_bwd":
+                    lambda: 12 * n + k["mask_bytes"] + table}[k["kernel"]]()
+        if k["bytes"] != want:
+            raise AssertionError(f"{k['kernel']} at {k['shape']} reported "
+                                 f"{k['bytes']} bytes, its bound's {want}")
+    return len(costs.kernels)
+
+
+def phase_roofline(torch, dev, card):
+    """The roofline of the counted steps (``_count_serve``, the train
+    phase's step 0): FLOPs, bytes, collective bytes, the three terms
+    against the H100's published peaks, the bottleneck, model FLOPs, the
+    decode's ideal bytes, beside the phase's measured step time and the
+    share t_useful / measured.  Checks: every kernel launch of a pass
+    reported bytes equal to its bound's at its shape, as many launches as
+    the wrappers counted, and each decode's counted bytes at least its
+    ideal bytes.  No speed gate."""
+    from repro_torch.roofline import analyze_costs, model_flops
+
+    want = {"internlm2-1.8b decode", "internlm2-1.8b prefill",
+            f"{MOE_ARCH} decode", "internlm2-1.8b train"}
+    if not want <= set(ROOFLINE):
+        raise AssertionError(f"missing counting passes: "
+                             f"{sorted(want - set(ROOFLINE))}")
+    rows = []
+    for name, e in ROOFLINE.items():
+        costs = e["costs"]
+        checked = _kernel_bytes_check(costs)
+        launched = sum(c.get("launches", 0) for k, c in e["launches"].items()
+                       if k != "ref")
+        if checked != launched:
+            raise AssertionError(f"{name}: {checked} kernel launches "
+                                 f"reported, {launched} counted")
+        r = analyze_costs(costs, arch=e["cfg"].arch, shape=e["shape"],
+                          mesh_desc="1 card", chips=1,
+                          model_fl=model_flops(e["n_active"], e["tokens"],
+                                               e["kind"]),
+                          ideal_bytes=e["ideal_bytes"])
+        if e["kind"] == "decode" and costs.bytes < e["ideal_bytes"]:
+            raise AssertionError(f"{name}: counted {costs.bytes} bytes < "
+                                 f"ideal {e['ideal_bytes']}")
+        d = r.as_dict()
+        d.update(name=name, kernel_launches=checked,
+                 kernel_ops=costs.kernel_ops,
+                 t_useful=r.t_useful, measured_ms=e["measured_ms"],
+                 measured_share=r.measured_share(e["measured_ms"] / 1e3),
+                 top_bytes=collections.Counter(costs.op_bytes).most_common(6))
+        rows.append(d)
+        log(f"[roofline] {name} ({e['shape']}): FLOPs {costs.flops:.6e}, "
+            f"bytes {costs.bytes:.6e}, collective bytes "
+            f"{dict(costs.coll_bytes)}; t_compute {r.t_compute * 1e3:.4f} "
+            f"ms, t_memory {r.t_memory * 1e3:.4f} ms, t_collective "
+            f"{r.t_collective * 1e3:.4f} ms -> {r.bottleneck}; model_flops "
+            f"{d['model_flops']:.6e}, ideal_bytes {e['ideal_bytes']:.6e}; "
+            f"t_useful {r.t_useful * 1e3:.4f} ms against measured "
+            f"{e['measured_ms']:.2f} ms = {d['measured_share']:.4f}; "
+            f"{checked} kernel launches, bytes as their bounds'; "
+            f"card {card}")
+        log(f"[roofline] {name}: bytes by op {d['top_bytes']}; kernel "
+            f"operations {costs.kernel_ops}")
+    log(json.dumps({"roofline": rows, "card": card}, default=str))
+    return rows
 
 
 def phase_serve_int(torch, dev):
@@ -1629,7 +1894,7 @@ def phase_train(torch, dev, card):
         cfg, steps=TRAIN_STEPS, ckpt_dir=None, resume="none", ckpt_every=0,
         batch_override=TRAIN_BATCH, seq_override=TRAIN_SEQ,
         opt_kind="adamw", sched=ScheduleCfg(peak_lr=3e-4, warmup_steps=2),
-        log_every=1, device=dev)
+        log_every=1, device=dev, costs_step=0)
     counts, by_shape = read_counts(), launched_shapes()
     mem = torch.cuda.max_memory_allocated(dev)
     losses, gnorms = out["losses"], out["grad_norms"]
@@ -1643,6 +1908,18 @@ def phase_train(torch, dev, card):
     step_ms = [t * 1e3 for t in out["step_s"]]
     med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    # step 0 ran under the roofline's counter (not in the median); every
+    # step launches the same kernels, so it launched a step's share
+    c0 = out["costs"]
+    from repro_torch.models import param_specs
+    from repro_torch.roofline import active_params
+    ROOFLINE["internlm2-1.8b train"] = dict(
+        costs=c0, cfg=cfg, kind="train", tokens=tokens,
+        n_active=active_params(cfg, param_specs(cfg)), measured_ms=med,
+        ideal_bytes=0.0, shape=f"train batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, adamw", launches={
+            k: {"launches": counts[k]["launches"] / len(losses)}
+            for k in ("ppa_fused", "softmax_ppa", "softmax_ppa_bwd")})
     shapes = {"ppa_fused": (TRAIN_BATCH, TRAIN_SEQ, cfg.d_ff),
               "softmax_ppa": SOFTMAX_BWD_SHAPES["train"],
               "softmax_ppa_bwd": SOFTMAX_BWD_SHAPES["train"]}
@@ -2765,6 +3042,15 @@ def main() -> int:
         run("train_resume", phase_train_resume, torch, dev)
         paths["serve_moe"] = run("serve_moe", phase_serve_full, torch, dev,
                                  card, MOE_ARCH, "serve_moe")
+        if MOE_ARCH in LOADED:
+            paths["serve_moe_sharded"] = run(
+                "serve_moe_sharded", phase_serve_moe_sharded, torch, dev,
+                card)
+        else:
+            failed.append("serve_moe_sharded")
+        run("roofline", phase_roofline, torch, dev, card)
+        LOADED.clear()
+        _free(torch)
         run("parity_moe", phase_parity, torch, dev, MOE_ARCH, 1,
             "parity_moe")
         paths["flash"] = run("flash", phase_flash, torch, dev)

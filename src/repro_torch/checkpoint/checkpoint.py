@@ -16,7 +16,11 @@ bits, with "bfloat16" as its dtype in the manifest.
   * a crash mid-save leaves only a ``.tmp`` dir — ``latest_step`` ignores
     it, so restart resumes from the previous complete checkpoint;
   * ``restore`` places every leaf on the device of the matching leaf of
-    the tree it is given, in that leaf's dtype;
+    the tree it is given, in that leaf's dtype, or, given ``shardings``,
+    distributes it onto its ``(mesh, placements)`` target: save on one
+    mesh, restore on another (the elastic restart);
+  * ``save`` of a DTensor leaf writes the full tensor (a collective: every
+    rank of its mesh calls ``save``, and global rank 0 writes);
   * the data cursor rides in ``extra``.
 """
 
@@ -30,6 +34,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Placement
 
 from ..tree import leaves_with_path
 
@@ -58,9 +64,42 @@ def _dtype_name(t) -> str:
     return str(_to_numpy(t).dtype)
 
 
+def _gather_full(tree):
+    """The tree with every DTensor leaf gathered to its full tensor, and
+    whether there was one."""
+    found = []
+
+    def leaf(t):
+        if isinstance(t, DTensor):
+            found.append(True)
+            return t.full_tensor()
+        return t
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v) for v in t)
+        return leaf(t)
+
+    return walk(tree), bool(found)
+
+
 def save(ckpt_dir, step: int, tree, extra: Optional[dict] = None,
          keep: int = 3) -> Path:
     ckpt_dir = Path(ckpt_dir)
+    tree, sharded = _gather_full(tree)
+    if sharded and dist.is_initialized():
+        # one writer; the others wait until the step is published
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, tree, extra, keep)
+        dist.barrier()
+        return ckpt_dir / f"step_{step:08d}"
+    return _write(ckpt_dir, step, tree, extra, keep)
+
+
+def _write(ckpt_dir: Path, step: int, tree, extra: Optional[dict],
+           keep: int) -> Path:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
@@ -116,13 +155,19 @@ def _rebuild(tree, it):
     return next(it)
 
 
-def restore(ckpt_dir, step: int, tree_like) -> tuple[Any, dict]:
+def restore(ckpt_dir, step: int, tree_like, shardings=None
+            ) -> tuple[Any, dict]:
     """Load a checkpoint into the structure of ``tree_like`` (nested dicts
     and tuples of tensors): each leaf takes the dtype and device of its
-    counterpart there."""
+    counterpart there.  ``shardings``: a tree of the same structure whose
+    leaves are ``(mesh, placements)`` targets (``param_shardings``) or
+    None: a leaf with a target is distributed onto it (every rank of the
+    mesh calls ``restore``)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     data = np.load(d / "arrays.npz")
+    targets = (dict(_targets(shardings)) if shardings is not None
+               else {})
     out = []
     for key, like in leaves_with_path(tree_like):
         if key not in data:
@@ -137,8 +182,33 @@ def restore(ckpt_dir, step: int, tree_like) -> tuple[Any, dict]:
             raise ValueError(
                 f"shape mismatch for {key}: ckpt {tuple(t.shape)} vs "
                 f"expected {tuple(like.shape)}")
-        out.append(t.to(device=like.device, dtype=like.dtype))
+        t = t.to(device=like.device, dtype=like.dtype)
+        if targets.get(key) is not None:
+            from ..distributed.sharding import distribute
+            t = distribute(t, targets[key])
+        out.append(t)
     return _rebuild(tree_like, iter(out)), manifest["extra"]
+
+
+def _is_target(x) -> bool:
+    return (isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[1], (tuple, list))
+            and all(isinstance(p, Placement) for p in x[1]))
+
+
+def _targets(tree, prefix: str = ""):
+    """(path, target) of a shardings tree, whose leaves are ``(mesh,
+    placements)`` pairs or None, paths named as ``leaves_with_path``
+    names them."""
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (tuple, list)) and not _is_target(tree):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _targets(v, f"{prefix}/{k}" if prefix else k)
 
 
 def gc_old(ckpt_dir, keep: int) -> None:

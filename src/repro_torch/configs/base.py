@@ -3,20 +3,24 @@
 Every ported architecture ships as ``repro_torch/configs/<id>.py``
 exposing ``config()`` (the published dims) and ``smoke()`` (a reduced
 same-family variant for CPU tests).  :func:`apply_shape` sets the
-per-shape execution knobs of ``repro/configs/base.py``; the mesh padding
-(``resolve_for_mesh``) comes with the distributed port.
+per-shape execution knobs of ``repro/configs/base.py``;
+:func:`resolve_for_mesh` pads the sharded dimensions to a mesh's
+multiples, as the reference's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from math import gcd as _gcd
 from typing import Dict, Optional
 
+from ..models.common import pad_to
 from ..models.config import ModelCfg
 
 __all__ = ["ShapeProfile", "SHAPES", "ARCH_IDS", "get_config",
-           "get_smoke_config", "apply_shape", "shape_skip_reason"]
+           "get_smoke_config", "apply_shape", "resolve_for_mesh",
+           "shape_skip_reason"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +71,41 @@ def get_config(arch: str) -> ModelCfg:
 
 def get_smoke_config(arch: str) -> ModelCfg:
     return _module(arch).smoke()
+
+
+def resolve_for_mesh(cfg: ModelCfg, tp: int = 16, fsdp: int = 16
+                     ) -> ModelCfg:
+    """Pad sharded dimensions up to mesh multiples; record the padding.
+
+    With ``cfg.kv_shard == "seq"`` the KV heads stay unpadded (they are
+    replicated over the model axis; the cache shards its sequence dim
+    instead — flash-decode style)."""
+    pads = []
+
+    def pad(name, val, mult):
+        new = pad_to(val, mult)
+        if new != val:
+            pads.append((name, val, new))
+        return new
+
+    n_q = pad("n_q", cfg.n_q, tp)
+    n_kv = cfg.n_kv if cfg.kv_shard == "seq" else pad("n_kv", cfg.n_kv, tp)
+    if n_q % n_kv:
+        n_q = pad("n_q_gqa", n_q, n_kv * tp // _gcd(n_kv, tp))
+    kw = dict(
+        n_q=n_q,
+        n_kv=n_kv,
+        vocab=pad("vocab", cfg.vocab, tp),
+    )
+    if cfg.ssm_inner:
+        kw["ssm_inner"] = pad("ssm_inner", cfg.ssm_inner, tp)
+    # GQA grouping must stay integral after padding; model dims must divide
+    assert kw["n_q"] % kw["n_kv"] == 0, (cfg.arch, kw)
+    assert cfg.d_model % tp == 0, (cfg.arch, cfg.d_model, tp)
+    assert cfg.d_ff % tp == 0, (cfg.arch, cfg.d_ff, tp)
+    if cfg.moe_experts:
+        assert cfg.moe_experts % tp == 0, (cfg.arch, cfg.moe_experts, tp)
+    return cfg.replace(pad_info=tuple(pads), **kw)
 
 
 def apply_shape(cfg: ModelCfg, shape: ShapeProfile) -> ModelCfg:

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..roofline import bounds, op_costs
 from .build import (VECTOR_BYTES, check_cuda_input, get_lib, raise_on_error,
                     stream_of, vector_split)
 from .ref import ppa_eval_ref
@@ -186,4 +187,11 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False
     shape_counts[tuple(x.shape)] += 1
     variant_counts[(tuple(x.shape), str(x.dtype).replace("torch.", ""),
                     tc.naf, bool(gate))] += 1
+    if op_costs.counting():
+        op_costs.report_kernel(
+            "ppa_fused", x.shape, bounds.fused_work(
+                x.numel(), x.element_size(), tc.num_segments, tc.plan.order,
+                tc.plan.round_mults, bool(gate)),
+            itemsize=x.element_size(), table=tc.naf, gate=bool(gate),
+            segments=tc.num_segments, order=tc.plan.order)
     return y

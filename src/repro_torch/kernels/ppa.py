@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from ..roofline import bounds, op_costs
 from .build import (VECTOR_BYTES, check_cuda_input, get_lib, raise_on_error,
                     stream_of, vector_split)
 from .ref import ppa_eval_ref
@@ -67,4 +68,10 @@ def ppa_eval_int(tc, x_int: torch.Tensor) -> torch.Tensor:
     raise_on_error(rc, "ppa_int")
     counts["launches"] += 1
     shape_counts[tuple(x_int.shape)] += 1
+    if op_costs.counting():
+        op_costs.report_kernel(
+            "ppa_int", x_int.shape, bounds.int_work(
+                x_int.numel(), tc.num_segments, tc.plan.order,
+                tc.plan.round_mults), table=tc.naf,
+            segments=tc.num_segments, order=tc.plan.order)
     return y

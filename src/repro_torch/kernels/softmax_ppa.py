@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..roofline import bounds, op_costs
 from .build import check_cuda_input, get_lib, raise_on_error, stream_of
 from .fused import condition_f32, eval_ref
 
@@ -183,7 +184,30 @@ def softmax_ppa(x: torch.Tensor, tc, where: Optional[torch.Tensor] = None
     raise_on_error(rc, "softmax_ppa")
     counts["launches"] += 1
     shape_counts[tuple(x.shape)] += 1
+    if op_costs.counting():
+        _report("softmax_ppa", bounds.softmax_work, x, tc, where)
     return y
+
+
+def _mask_elems(where: Optional[torch.Tensor]) -> int:
+    """The mask's elements at its unexpanded size (as the kernel reads
+    it)."""
+    if where is None:
+        return 0
+    n = 1
+    for size, stride in zip(where.shape, where.stride()):
+        if stride != 0:
+            n *= size
+    return n
+
+
+def _report(name, work, x, tc, where) -> None:
+    mask = _mask_elems(where)
+    op_costs.report_kernel(
+        name, x.shape, work(x.numel(), mask, tc.num_segments, tc.plan.order,
+                            tc.plan.round_mults),
+        mask_bytes=mask, table=tc.naf, segments=tc.num_segments,
+        order=tc.plan.order)
 
 
 def softmax_ppa_bwd_plain(x: torch.Tensor, g: torch.Tensor, tc,
@@ -241,4 +265,6 @@ def softmax_ppa_bwd(x: torch.Tensor, g: torch.Tensor, tc,
     raise_on_error(rc, "softmax_ppa_bwd")
     bwd_counts["launches"] += 1
     bwd_shape_counts[tuple(x.shape)] += 1
+    if op_costs.counting():
+        _report("softmax_ppa_bwd", bounds.softmax_bwd_work, x, tc, where)
     return dx

@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -28,6 +29,7 @@ from ..data import SyntheticLM
 from ..device import resolve_device
 from ..models import init_params, make_acts, param_specs
 from ..models.transformer import dtype_of
+from ..roofline import OpCosts
 from ..runtime import MetricsLogger, Watchdog
 from ..train import OptCfg, ScheduleCfg, TrainCfg, make_train_step, \
     train_init
@@ -40,13 +42,15 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
                  seq_override: int = 0, lr: float = 3e-4,
                  opt_kind: str = "adamw", accum: int = 1,
                  simulate_crash_at: int = -1, metrics_path=None,
-                 log_every: int = 10, device=None, sched=None):
+                 log_every: int = 10, device=None, sched=None,
+                 costs_step: Optional[int] = None):
     """Train ``cfg`` for ``steps`` steps on ``device`` (None: the card).
     ``sched`` overrides the schedule (default: the reference launcher's,
     peak ``lr``, 20 warmup steps).  Returns {"losses", "grad_norms",
     "stragglers", "final_loss", "step_s"} (``step_s``: each step's
     seconds, measured around a step that ends with its metrics on the
-    host)."""
+    host).  ``costs_step``: a step run under an ``OpCosts`` counter (its
+    time includes the counting), whose costs come back as "costs"."""
     dev = resolve_device(device)
     seq = seq_override or 512
     gbatch = batch_override or 8
@@ -74,12 +78,18 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
     wd = Watchdog(min_deadline_s=600.0)
     logger = MetricsLogger(metrics_path)
     losses, grad_norms, step_s = [], [], []
+    costs = None
 
     for step in range(start, steps):
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.batch_at(step).items()}
         t0 = time.perf_counter()
-        params, tstate, metrics = wd.step(step_fn, params, tstate, batch)
+        if step == costs_step:
+            with OpCosts() as costs:
+                params, tstate, metrics = wd.step(step_fn, params, tstate,
+                                                  batch)
+        else:
+            params, tstate, metrics = wd.step(step_fn, params, tstate, batch)
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         grad_norms.append(float(metrics["grad_norm"]))
@@ -99,7 +109,8 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
              extra={"next_step": steps, "loss": losses[-1]})
     return {"losses": losses, "grad_norms": grad_norms,
             "stragglers": wd.stragglers,
-            "final_loss": losses[-1] if losses else None, "step_s": step_s}
+            "final_loss": losses[-1] if losses else None, "step_s": step_s,
+            "costs": costs}
 
 
 def main(argv=None):

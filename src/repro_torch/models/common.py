@@ -1,9 +1,12 @@
-"""Parameter specs shared by the models.
+"""Parameter specs shared by the models, and the sharding context.
 
 Models declare their parameters as nested dicts of :class:`P` specs —
 shape, logical axis names and initializer — in the layouts of the JAX
 package (stacked ``layers`` axis first; ``wq (d, h, e)``, ``wo (h, e, d)``),
 so a parameter tree carries across unchanged (:func:`params_from_jax`).
+:class:`ShardCtx` carries a ``DeviceMesh`` to the layers that run
+collectives (the sharded MoE block); without one every layer runs on one
+process.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from ..device import resolve_device
 from ..tree import map_tree
 
-__all__ = ["P", "init_params", "params_from_jax", "map_tree"]
+__all__ = ["P", "ShardCtx", "init_params", "pad_to", "params_from_jax",
+           "map_tree"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +88,25 @@ def params_from_jax(tree, device=None):
     return map_tree(
         lambda a: torch.as_tensor(np.array(a), device=dev), tree)
 
+
+
+def pad_to(n: int, multiple: int) -> int:
+    """Round n up to a multiple (sharding divisibility padding)."""
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """A ``torch.distributed`` ``DeviceMesh`` and its axis names for the
+    layers that run collectives (the sharded MoE block).  ``mesh=None``
+    (the default) means one process: the MoE block takes its local,
+    collective-free path.  With a mesh, the dense layers run replicated on
+    every rank (the reference's compiler partitions them; eager PyTorch
+    does not), and the MoE block shards its experts over the mesh."""
+
+    mesh: Any = None                          # DeviceMesh or None
+    dp_axes: Tuple[str, ...] = ("data",)      # batch axes (may include pod)
+    tp_axis: Optional[str] = "model"
+    batch_sharded: bool = True                # False for long_500k (B=1)
+    # The reference's seq_shard, psched() and batch_spec serve only its
+    # shard_hint, which is not ported yet; they come with it.

@@ -55,21 +55,21 @@ from .activations import ActBundle
 from .attention import (AttnCfg, attn_params, attention,
                         cross_attention_cached, decode_attention,
                         init_kv_cache)
-from .common import P, map_tree
+from .common import P, ShardCtx, map_tree
 from .config import ModelCfg, StageCfg
 from .layers import (cross_entropy_chunked, embed_lookup, layernorm,
                      layernorm_params, lm_head_logits, mean_last, rmsnorm,
                      rmsnorm_params)
 from .mlp import gated_mlp, gated_mlp_params, mlp, mlp_params
-from .moe import MoECfg, moe_block, moe_params
+from .moe import MoECfg, moe_block, moe_params, shard_experts
 from .rwkv import (RWKVCfg, init_rwkv_state, rwkv_channel_mix,
                    rwkv_channel_params, rwkv_time_mix, rwkv_time_params,
                    time_core)
 from .ssm import (SSMCfg, init_ssm_state, ssm_decode_step, ssm_mixer,
                   ssm_params)
 
-__all__ = ["param_specs", "prepare_params", "forward_hidden", "init_cache",
-           "prefill", "decode_step", "loss_fn", "ring_len"]
+__all__ = ["param_specs", "prepare_params", "shard_params", "forward_hidden",
+           "init_cache", "prefill", "decode_step", "loss_fn", "ring_len"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -231,6 +231,23 @@ def prepare_params(params: dict, cfg: ModelCfg, device=None) -> dict:
     return out
 
 
+def shard_params(params: dict, cfg: ModelCfg, ctx: ShardCtx) -> dict:
+    """Prepared params with every MoE layer's expert weights as DTensors
+    on ``ctx.mesh`` (``moe.shard_experts``): each rank keeps its own
+    shard.  The other leaves stay replicated: the dense layers run on
+    every rank."""
+    if ctx.mesh is None:
+        return params
+    mcfg = _moe_cfg(cfg)
+    out = dict(params)
+    out["stages"] = {
+        _stage_key(i, st): [
+            dict(p, moe=shard_experts(p["moe"], mcfg, ctx)) if st.moe else p
+            for p in params["stages"][_stage_key(i, st)]]
+        for i, st in enumerate(cfg.stages)}
+    return out
+
+
 def _head(params: dict) -> torch.Tensor:
     return params.get("lm_head", params["embed"])
 
@@ -246,18 +263,19 @@ def forward_hidden(params: dict, cfg: ModelCfg, batch: dict,
 
 
 def _ffn(cfg: ModelCfg, st: StageCfg, p: dict, x: torch.Tensor,
-         acts: ActBundle):
+         acts: ActBundle, ctx: Optional[ShardCtx] = None):
     """The block's second half: (y, MoE aux loss or None).  The encoder's
     and the cross decoder's MLP is the plain one with gelu, whatever
-    ``cfg.gate``, as in the reference."""
+    ``cfg.gate``, as in the reference.  ``ctx``: the mesh the MoE block
+    shards its experts over (None: one process)."""
     if st.moe:
-        return moe_block(p["moe"], x, _moe_cfg(cfg), acts)
+        return moe_block(p["moe"], x, _moe_cfg(cfg), acts, ctx)
     if st.kind in ("enc", "xdec"):
         return mlp(p["mlp"], x, acts, gate="gelu"), None
     return gated_mlp(p["mlp"], x, acts, gate=cfg.gate), None
 
 
-def _layer(cfg, st, acts, positions, h, p, enc_out=None):
+def _layer(cfg, st, acts, positions, h, p, enc_out=None, ctx=None):
     """One block on a full sequence: (h, its decode state unpacked, aux or
     None).  The state is {"kv": (k, v)} and, on a ``hyb`` block, the SSM's
     final carry, on an ``xdec`` block the encoder's cross K/V {"xk", "xv"};
@@ -288,7 +306,7 @@ def _layer(cfg, st, acts, positions, h, p, enc_out=None):
             _norm(cfg, h, p["lnx"]), acts, x_kv=enc_out,
             impl=cfg.attn_impl, return_kv=True)
         h = h + c
-    y, aux = _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts)
+    y, aux = _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts, ctx)
     return h + y, state, aux
 
 
@@ -355,7 +373,8 @@ def _pack_state(state: dict, positions, eff: int, dtype) -> dict:
     return out
 
 
-def _prefill_hidden(params, cfg, batch, acts, cache_len, cache_dtype):
+def _prefill_hidden(params, cfg, batch, acts, cache_len, cache_dtype,
+                    ctx=None):
     h, enc_out = _embed_inputs(params, cfg, batch, acts)
     b, t, _ = h.shape
     positions = torch.arange(t, dtype=torch.int32,
@@ -367,7 +386,8 @@ def _prefill_hidden(params, cfg, batch, acts, cache_len, cache_dtype):
         key = _stage_key(i, st)
         packed = []
         for p in params["stages"][key]:
-            h, state, _ = _layer(cfg, st, acts, positions, h, p, enc_out)
+            h, state, _ = _layer(cfg, st, acts, positions, h, p, enc_out,
+                                 ctx)
             if cache_len is not None:
                 packed.append(_pack_state(state, positions,
                                           ring_len(st, cache_len),
@@ -427,15 +447,16 @@ def _pack_ring(k, v, positions, eff: int, dtype) -> dict:
 
 def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
             acts: ActBundle, cache_dtype=torch.bfloat16,
-            last_idx: Optional[torch.Tensor] = None
+            last_idx: Optional[torch.Tensor] = None,
+            ctx: Optional[ShardCtx] = None
             ) -> Tuple[torch.Tensor, dict]:
     """Run the full prompt once (prepared params); return (last-token
     logits, decode cache).  ``batch`` as :func:`forward_hidden` takes it.
     ``last_idx`` (B,) picks each row's last real position in the whole
     sequence (the vision prefix included) when prompts are right-padded to
-    a shared length."""
+    a shared length.  ``ctx``: the mesh of the sharded MoE block."""
     h, cache = _prefill_hidden(params, cfg, batch, acts, cache_len,
-                               cache_dtype)
+                               cache_dtype, ctx)
     if last_idx is None:
         last = h[:, -1]
     else:
@@ -443,7 +464,8 @@ def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
     return lm_head_logits(last, _head(params)), cache
 
 
-def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h):
+def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h,
+                  ctx=None):
     """Layer ``j`` of a stage at one decode step; writes its cache entries
     in place."""
     hn = _norm(cfg, h, p["ln1"])
@@ -474,19 +496,22 @@ def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h):
         h = h + cross_attention_cached(
             p["xattn"], _attn_cfg(cfg, st, False), _norm(cfg, h, p["lnx"]),
             cache["xk"][j], cache["xv"][j], acts)
-    return h + _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts)[0]
+    return h + _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts, ctx)[0]
 
 
 def decode_step(params: dict, cfg: ModelCfg, cache: dict,
-                tokens: torch.Tensor, pos: torch.Tensor, acts: ActBundle
+                tokens: torch.Tensor, pos: torch.Tensor, acts: ActBundle,
+                ctx: Optional[ShardCtx] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """One token for every sequence: tokens (B, 1), pos (B,) -> logits
-    (B, V); the cache is updated in place and returned."""
+    (B, V); the cache is updated in place and returned.  ``ctx``: the mesh
+    of the sharded MoE block."""
     h = embed_lookup(params["embed"], tokens)
     for i, st in enumerate(cfg.stages):
         key = _stage_key(i, st)
         for j, p in enumerate(params["stages"][key]):
-            h = _decode_layer(cfg, st, acts, p, cache[key], j, pos, h)
+            h = _decode_layer(cfg, st, acts, p, cache[key], j, pos, h,
+                              ctx)
     h = _norm(cfg, h, params["ln_f"])
     return lm_head_logits(h, _head(params))[:, 0], cache
 

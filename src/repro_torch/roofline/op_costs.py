@@ -1,0 +1,256 @@
+"""What one call of a step runs: FLOPs, bytes and collective bytes.
+
+Counterpart of ``repro/roofline/hlo_costs.py``.  :class:`OpCosts` is a
+``TorchDispatchMode``: inside ``with OpCosts() as c:`` every ATen op that
+reaches the dispatcher is run and counted.  The step runs eagerly, so
+every layer is counted where it runs and no loop trip count enters.
+
+  * FLOPs: matrix-product ops only (``mm``, ``addmm``, ``bmm``,
+    ``baddbmm``), 2·M·N·K by ``torch.utils.flop_counter``'s formulas, as
+    the reference counts only ``dot``s.
+  * Bytes: each materialised op's operands read (an expanded operand at
+    its unexpanded size) plus its result written; a gather (embedding,
+    index, index_select) reads only the rows it writes.  Views count 0, as
+    do allocations (the counterpart of ``_NO_MATERIALIZE``).  A composite
+    op is counted as the ops it decomposes into.  An in-place or
+    ``out=`` op counts the bytes it writes, never its whole destination:
+    ``index_put_``/``index_copy_``/``scatter_`` into a cache write their
+    rows, ``copy_`` into a slice writes the slice and reads only its
+    source.
+  * Collective bytes by kind, from the ``c10d.*`` and
+    ``_c10d_functional.*`` ops, under the reference's names
+    (``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute`` for send/recv; ``broadcast`` beside them): the
+    bytes of each one's result, as the reference takes the result shape.
+  * The port's CUDA kernels launch through ``ctypes``, which the
+    dispatcher never sees: each wrapper reports its work
+    (:func:`report_kernel`, with the formulas of ``bounds.py``), which
+    adds its bytes to ``bytes`` and its elementwise operations to
+    ``kernel_ops`` (not to the matrix FLOPs).
+
+A mode entered above DTensor sees the global ops of DTensor arguments; the
+sharded MoE block computes on local tensors, so its counts are one rank's.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Dict, List
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+__all__ = ["OpCosts", "report_kernel", "counting"]
+
+aten = torch.ops.aten
+
+#: the counters in force, innermost last
+_ACTIVE: List["OpCosts"] = []
+
+_MATMULS = {aten.mm, aten.addmm, aten.bmm, aten.baddbmm}
+# views the schema may not mark as aliasing, and ops that move no data
+_ZERO = {aten.empty, aten.empty_like, aten.empty_strided, aten.new_empty,
+         aten.new_empty_strided, aten.lift_fresh, aten.detach, aten.alias,
+         aten._unsafe_view, aten.t, aten.transpose, aten.permute,
+         aten.expand, aten.slice, aten.select, aten.unsqueeze, aten.squeeze,
+         aten.as_strided, aten.view, aten.resize_, aten.set_,
+         aten.record_stream}
+# in-place ops whose destination is written without being read
+_WRITE_ONLY = {aten.copy_, aten.fill_, aten.zero_, aten.normal_,
+               aten.uniform_, aten.random_, aten.exponential_,
+               aten.bernoulli_}
+# in-place ops that write only the rows their index names
+_ROWS = {aten.index_copy_, aten.index_add_, aten.index_reduce_,
+         aten.index_put_, aten._index_put_impl_, aten.scatter_,
+         aten.scatter_add_, aten.scatter_reduce_, aten.put_}
+_ACCUMULATE = {aten.index_add_, aten.index_reduce_, aten.scatter_add_,
+               aten.scatter_reduce_}
+# ops that read only the rows their index names
+_GATHERS = {aten.embedding, aten.index_select, aten.gather, aten.index,
+            aten.take}
+
+
+def counting() -> bool:
+    """Whether an ``OpCosts`` counter is in force (kernels report only
+    then)."""
+    return bool(_ACTIVE)
+
+
+def report_kernel(name: str, shape, work, **info) -> None:
+    """A CUDA kernel's launch at input ``shape``: ``work`` = (bytes, int32
+    operations, float32 operations) by the formulas of ``bounds.py``;
+    ``info`` names what else entered them (dtype, table, mask)."""
+    for c in _ACTIVE:
+        c._kernel(name, tuple(shape), work, info)
+
+
+def _read_bytes(t: torch.Tensor) -> int:
+    """A tensor's bytes at its unexpanded size (broadcast dims, of stride
+    0, read once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _tensors(x) -> list:
+    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
+
+
+def _coll_kind(name: str):
+    for keys, kind in ((("allreduce", "all_reduce"), "all-reduce"),
+                       (("allgather", "all_gather"), "all-gather"),
+                       (("reduce_scatter",), "reduce-scatter"),
+                       (("alltoall", "all_to_all"), "all-to-all"),
+                       (("recv",), "collective-permute"),
+                       (("broadcast",), "broadcast")):
+        if any(k in name for k in keys):
+            return kind
+    return None         # send (its recv counts), barrier, wait_tensor
+
+
+class OpCosts(TorchDispatchMode):
+    """Counts the ops run inside ``with OpCosts() as c:`` (module
+    docstring): ``flops``, ``bytes``, ``coll_bytes`` by kind,
+    ``kernel_ops`` by kernel ({"int32", "float32"}), ``kernels`` (every
+    reported launch: kernel, shape, bytes, operations and what else
+    entered the formula) and ``op_bytes`` (bytes by op, to see where they
+    go)."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.coll_bytes: Dict[str, int] = collections.Counter()
+        self.kernel_ops: Dict[str, Dict[str, float]] = {}
+        self.kernels: List[dict] = []
+        self.op_bytes: Dict[str, int] = collections.Counter()
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            _ACTIVE.remove(self)
+
+    def _kernel(self, name, shape, work, info) -> None:
+        nbytes, int_ops, fp_ops = work
+        self.bytes += nbytes
+        self.op_bytes[name] += nbytes
+        ops = self.kernel_ops.setdefault(name, {"int32": 0, "float32": 0})
+        ops["int32"] += int_ops
+        ops["float32"] += fp_ops
+        self.kernels.append(dict(kernel=name, shape=shape, bytes=nbytes,
+                                 int_ops=int_ops, fp_ops=fp_ops, **info))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.overloadpacket not in _MATMULS:
+            # a composite op (matmul, einsum, linear, reshape: they reach a
+            # mode whole under inference_mode) is counted as the ops it
+            # runs, with this mode in force again
+            TorchDispatchMode.__enter__(self)
+            try:
+                out = func.decompose(*args, **kwargs)
+            finally:
+                TorchDispatchMode.__exit__(self, None, None, None)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        self._count(func, args, kwargs, out)
+        return out
+
+    def _count(self, func, args, kwargs, out) -> None:
+        packet = func.overloadpacket
+        if func.namespace in ("c10d", "_c10d_functional"):
+            kind = _coll_kind(packet.__name__)
+            if kind is not None:
+                # c10d's ops work in place on their first argument
+                self.coll_bytes[kind] += _nbytes(
+                    args[0] if func.namespace == "c10d" else out)
+            return
+        if packet in _MATMULS:
+            from torch.utils.flop_counter import flop_registry
+            self.flops += flop_registry[packet](*args, **kwargs,
+                                                out_val=out)
+        if func.is_view or packet in _ZERO:
+            return
+        named = {}
+        for i, a in enumerate(func._schema.arguments):
+            if i < len(args):
+                named[a.name] = args[i]
+            elif a.name in kwargs:
+                named[a.name] = kwargs[a.name]
+        dest = {a.name for a in func._schema.arguments
+                if a.alias_info is not None and a.alias_info.is_write}
+        if packet in _GATHERS:
+            # the index, and the rows read as they are written
+            nbytes = _nbytes([v for k, v in named.items()
+                              if k not in ("self", "weight")]) \
+                + 2 * _nbytes(out)
+        elif not dest:
+            nbytes = (sum(_read_bytes(t) for t in _tensors(list(
+                named.values()))) + _nbytes(out))
+        elif packet in _ROWS:
+            nbytes = self._row_bytes(packet, named)
+        else:
+            srcs = [v for k, v in named.items()
+                    if k not in dest or (packet not in _WRITE_ONLY
+                                         and k == "self")]
+            nbytes = (sum(_read_bytes(t) for t in _tensors(srcs))
+                      + _nbytes([named[k] for k in dest if k in named]))
+        self.bytes += nbytes
+        self.op_bytes[str(packet.__name__)] += nbytes
+
+    @staticmethod
+    def _row_bytes(packet, named) -> int:
+        """Bytes of an in-place op that writes only the rows its index
+        names: the rows written (read too where it accumulates), the
+        index and the source's part that lands."""
+        self_t = named["self"]
+        size = self_t.element_size()
+        if packet in (aten.index_put_, aten._index_put_impl_):
+            idx = [i for i in named["indices"] if i is not None]
+            rows = 1
+            for s in torch.broadcast_shapes(*(
+                    (int(i.sum()),) if i.dtype == torch.bool else i.shape
+                    for i in idx)):
+                rows *= s
+            covered = sum(i.dim() if i is not None and i.dtype == torch.bool
+                          else 1 for i in named["indices"])
+            per = 1
+            for s in self_t.shape[covered:]:
+                per *= s
+            none_dims = [d for d, i in enumerate(named["indices"])
+                         if i is None]
+            for d in none_dims:
+                per *= self_t.shape[d]
+            written = rows * per * size
+            reads = _nbytes(idx) + min(_read_bytes(named["values"]),
+                                       written)
+            if named.get("accumulate"):
+                reads += written
+            return reads + written
+        if packet in (aten.index_copy_, aten.index_add_,
+                      aten.index_reduce_):
+            written = _nbytes(named["source"])
+            reads = written + _nbytes(named["index"])
+        else:                              # scatter_*, put_
+            index = named["index"]
+            written = index.numel() * size
+            src = named.get("src", named.get("source"))
+            reads = _nbytes(index) + (index.numel() * src.element_size()
+                                      if isinstance(src, torch.Tensor)
+                                      else 0)
+        if packet in _ACCUMULATE:
+            reads += written
+        return reads + written

@@ -32,6 +32,12 @@ sequences free their slot.
   seeded with it, so the coalesced engine is token-identical to the serial
   (``coalesce=False``) one.
 
+* **Sharded experts** — given ``ctx`` (``distributed.make_ctx`` of a
+  ``DeviceMesh``), every rank of the mesh runs an engine on the same
+  parameters and requests: the dense layers replicated, each MoE layer's
+  experts as DTensors holding the rank's shard (``shard_params``), their
+  collectives over the mesh's process groups (NCCL on the card).
+
 The PPA activation tables come from the shipped JSON (``repro_torch.
 tables``), or, given ``table_store=``, resolve through that
 ``TableStore`` (a table it lacks compiles on the engine's device, and a
@@ -53,7 +59,8 @@ from ..device import resolve_device
 from ..faults import failpoint
 from ..models import (ModelCfg, decode_step, init_cache, make_acts, prefill,
                       prepare_params)
-from ..models.transformer import RECURRENT_KINDS, ring_len
+from ..models.common import ShardCtx
+from ..models.transformer import RECURRENT_KINDS, ring_len, shard_params
 from ..tree import leaves_with_path
 
 __all__ = ["Request", "ServeEngine"]
@@ -91,7 +98,8 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ModelCfg, params, *, n_slots: int = 4,
-                 cache_len: int = 256, rng_seed: int = 0,
+                 cache_len: int = 256, ctx: Optional[ShardCtx] = None,
+                 rng_seed: int = 0,
                  table_store=None, act_backend: Optional[str] = None,
                  coalesce: bool = True, max_queue: Optional[int] = None,
                  device=None):
@@ -101,12 +109,17 @@ class ServeEngine:
         ``TableStore`` the PPA tables resolve through (None: the shipped
         JSON); the tuned config persisted next to it, if any, is activated
         first and kept as ``tuned``.  ``act_backend`` overrides
-        ``cfg.act_backend``."""
+        ``cfg.act_backend``.  ``ctx``: a ``ShardCtx`` whose mesh the MoE
+        layers shard their experts over (``make_ctx``); every rank of the
+        mesh runs an engine on the same params and requests, the dense
+        layers replicated (None: one process)."""
         self.device = resolve_device(device)
         if act_backend is not None and act_backend != cfg.act_backend:
             cfg = dataclasses.replace(cfg, act_backend=act_backend)
         self.cfg = cfg
-        self.params = prepare_params(params, cfg, self.device)
+        self.ctx = ctx or ShardCtx()
+        self.params = shard_params(prepare_params(params, cfg, self.device),
+                                   cfg, self.ctx)
         self.table_store = table_store
         self.tuned = None
         if table_store is not None:
@@ -250,7 +263,8 @@ class ServeEngine:
         logits, cache1 = prefill(self.params, self.cfg, batch,
                                  self.cache_len, self.acts,
                                  last_idx=torch.as_tensor(
-                                     last, device=self.device))
+                                     last, device=self.device),
+                                 ctx=self.ctx)
         toks_out = self._sample_rows(
             logits, [req.temperature for _, req in members],
             [seeds.get(id(req)) for _, req in members])
@@ -325,7 +339,7 @@ class ServeEngine:
         toks = torch.as_tensor(self.cur_tok[:, None], device=self.device)
         pos = torch.as_tensor(self.pos, device=self.device)
         logits, self.cache = decode_step(self.params, self.cfg, self.cache,
-                                         toks, pos, self.acts)
+                                         toks, pos, self.acts, self.ctx)
         temps: List[float] = []
         seeds: List[Optional[int]] = []
         for i in active:
@@ -373,7 +387,7 @@ class ServeEngine:
             last = torch.full((batch,), cfg.vision_tokens + min(lp, blen) - 1,
                               dtype=torch.long, device=self.device)
             prefill(self.params, cfg, feed, self.cache_len, self.acts,
-                    last_idx=last)
+                    last_idx=last, ctx=self.ctx)
             n += 1
         if decode:
             scratch = init_cache(self.cfg, self.n_slots, self.cache_len,
@@ -382,7 +396,8 @@ class ServeEngine:
                         torch.zeros((self.n_slots, 1), dtype=torch.int32,
                                     device=self.device),
                         torch.zeros((self.n_slots,), dtype=torch.int32,
-                                    device=self.device), self.acts)
+                                    device=self.device), self.acts,
+                        self.ctx)
             n += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -1,4 +1,6 @@
-"""The kernels' bounds in ``chip_smoke.py`` count what the function needs.
+"""The kernels' bounds (``repro_torch.roofline.bounds``, which
+``chip_smoke.py`` times the kernels against and the kernel wrappers report
+their work to an ``OpCosts`` counter with) count what the function needs.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes over the memory rate and its operations over the rate
@@ -9,25 +11,17 @@ bytes grow with it.  The hand counts below are those PERF.md states for the
 shapes the served model launches the kernels at.
 """
 
-import importlib.util
-from pathlib import Path
-
 import pytest
 
 pytest.importorskip("torch")
 
+from repro_torch.roofline import bounds  # noqa: E402
 from repro_torch.tables import load_table  # noqa: E402
-
-ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
 def cs():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return bounds
 
 
 def _bounds(cs):

@@ -665,3 +665,96 @@ def test_store_fed_engine_launches_kernels_on_card():
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
     assert store.stats()["compiles"] == 0
+
+
+@pytest.mark.gpu
+def test_fused_launch_reports_its_bound_bytes():
+    """A fused launch on the card reports to an ``OpCosts`` counter the
+    bytes and operations of its bound's formula at its shape."""
+    from repro_torch.roofline import OpCosts, bounds
+    dev = _card()
+    tc = K.pack_table(load_table("sigmoid_wide", 16), dev)
+    x = torch.randn(4, 1, 8192, device=dev, dtype=torch.bfloat16)
+    n0 = fused.counts["launches"]
+    with OpCosts() as c:
+        fused.ppa_fused_apply(tc, x, gate=True)
+    assert fused.counts["launches"] == n0 + 1
+    work = bounds.fused_work(x.numel(), 2, tc.num_segments, tc.plan.order,
+                             tc.plan.round_mults, True)
+    assert c.bytes == work[0] == 2 * 2 * x.numel() + 4 * tc.num_segments * (
+        tc.plan.order + 2)
+    assert [k["shape"] for k in c.kernels] == [(4, 1, 8192)]
+    assert c.kernel_ops["ppa_fused"] == {"int32": work[1],
+                                         "float32": work[2]}
+
+
+#: the sharded MoE against the local path on the card (another summation
+#: order over the model ranks: the reference's sharded-vs-local tolerance)
+MOE_ATOL, MOE_RTOL = 2e-5, 1e-4
+
+
+def _nccl_moe_rank(rank, init_file, out_dir):
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed import make_ctx
+    from repro_torch.models import make_acts
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2, device_id=dev,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        rng = np.random.default_rng(0)
+        d, f, e = 64, 128, 8
+        params = {k: torch.from_numpy(rng.normal(0, s, shape).astype(
+            np.float32)).to(dev) for k, s, shape in (
+                ("router", 0.5, (d, e)), ("w_gate", 0.2, (e, d, f)),
+                ("w_up", 0.2, (e, d, f)), ("w_down", 0.2, (e, f, d)))}
+        x = torch.from_numpy(rng.normal(0, 1, (4, 16, d)).astype(
+            np.float32)).to(dev)
+        acts = make_acts("ppa", device=dev)
+        res = {}
+        for mode in ("weight_gather", "token_gather"):
+            cfg = M.MoECfg(d_model=d, d_ff=f, n_experts=e, top_k=2,
+                           capacity_factor=8.0, mode=mode)
+            y0, a0 = M.moe_block(params, x, cfg, acts)
+            n0 = fused.counts["launches"]
+            y1, a1 = M.moe_block(params, x, cfg, acts, make_ctx(mesh))
+            res[mode] = (y0.cpu().numpy(), y1.cpu().numpy(), float(a0),
+                         float(a1), fused.counts["launches"] - n0)
+        np.save(f"{out_dir}/rank{rank}.npy", np.array(res, dtype=object),
+                allow_pickle=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_moe_over_nccl_on_two_cards(tmp_path):
+    """The sharded MoE on a (1, 2) mesh over NCCL, each card holding half
+    the experts, against the local path, in both modes; the expert
+    products' gate launches the fused kernel on each card."""
+    import time
+    import torch.multiprocessing as mp
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ctx = mp.start_processes(_nccl_moe_rank, args=(
+        str(tmp_path / "init"), str(tmp_path)), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("the NCCL ranks did not finish in 300 s")
+    for rank in range(2):
+        res = np.load(tmp_path / f"rank{rank}.npy", allow_pickle=True).item()
+        for mode, (y0, y1, a0, a1, launches) in res.items():
+            np.testing.assert_allclose(y1, y0, atol=MOE_ATOL, rtol=MOE_RTOL)
+            np.testing.assert_allclose(a1, a0, rtol=1e-6)
+            assert launches >= 1, mode
