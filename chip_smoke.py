@@ -28,6 +28,15 @@ Phases (any failure exits non-zero and prints no result line):
             kernels must have launched at least layers x engine steps times
             and no plain version may have run; the launches are counted by
             input shape (decode and prefill)
+4b. serve_sharded  the serve phase's model and requests through
+            ``ServeEngine(ctx=make_ctx(mesh))`` on a ("data", "model")
+            DeviceMesh of (1, 1) over NCCL: every parameter a DTensor
+            placed by the "serve" rules, the cache by ``cache_shardings``,
+            the dense layers as DTensor ops between the reference's hints
+            (``shard_hint``); the greedy tokens equal the serve phase's
+            exactly, the fused and softmax kernels launch at least layers
+            x steps times, no plain version runs, the hints redistribute
+            at least layers x steps times; decode ms beside serve's
 5. serve_int the same config cut to 2 layers with act_backend="cuda_int";
             the integer kernel must have launched at least layers x engine
             steps times and no plain version may have run
@@ -95,6 +104,14 @@ Phases (any failure exits non-zero and prints no result line):
             every kernel launch's self-reported bytes equal its bound's at
             its shape, as many reports as launches, and each decode's
             counted bytes at least its ideal bytes; no speed gate
+12b. dryrun  the dry run (``launch/dryrun.py``, fake process groups and
+            fake tensors; its four jobs run as CPU subprocesses from the
+            start, beside the card's phases): the serve phase's decode step
+            counted at mesh (1, 1) on fake tensors and on the card's real
+            ones must agree exactly in FLOPs, bytes and each kernel's
+            reported bytes; internlm2-1.8b decode_32k on the (16, 16) and
+            (2, 16, 16) fake meshes must end ok, the multipod cell's
+            argument bytes below the pod's; ``--hlo`` prints its tables
 13. parity_moe  moonshot at full width, 2 layers (the dense one and one
             MoE), float32: the parity phase's three arms and controls; the
             routed expert ids of every layer and call equal in all arms
@@ -956,6 +973,7 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens, table_store=None,
         reset_counts as reset_collectives
     from repro_torch.kernels import reset_counts
     from repro_torch.models import init_params, param_specs
+    from repro_torch.models.common import hint_counts
     from repro_torch.serve import ServeEngine
 
     if params is None:
@@ -971,6 +989,7 @@ def _serve(torch, dev, cfg, n_requests, max_new, lens, table_store=None,
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     reset_collectives()
+    hint_counts["redistributes"] = 0
     for r in reqs:
         eng.submit(r)
     steps = []                       # (seconds, admitted requests)
@@ -1034,6 +1053,7 @@ def phase_serve(torch, dev, card, store=None):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
     decode = sorted(t for t, adm in steps if adm == 0)
     dec_ms = decode[len(decode) // 2] * 1e3
+    DECODE_MS[tag] = dec_ms
     adm_ms = [t * 1e3 - dec_ms for t, adm in steps if adm > 0]
     tokens = sum(len(r.output) for r in reqs)
     mem = torch.cuda.max_memory_allocated(dev)
@@ -1219,6 +1239,7 @@ def phase_serve_full(torch, dev, card, arch, tag):
 #: run by tag and that run's median decode ms with the recording on, and
 #: the roofline's counting passes by name
 LOADED = {}
+DECODE_MS = {}
 ROUTES = {}
 ROUTED_MS = {}
 ROOFLINE = {}
@@ -1289,12 +1310,13 @@ def _count_serve(torch, eng, arch, dec_ms, prefill_ms, name=None):
     cfg, dev = eng.cfg, eng.device
     name = name or arch
     n_active = active_params(cfg, param_specs(cfg))
-    cache = init_cache(cfg, eng.n_slots, eng.cache_len, device=dev)
+    cache = eng._place_cache(init_cache(cfg, eng.n_slots, eng.cache_len,
+                                        device=dev))
     toks = torch.zeros((eng.n_slots, 1), dtype=torch.int32, device=dev)
     pos = torch.full((eng.n_slots,), eng.cache_len // 2, dtype=torch.int32,
                      device=dev)
     reset_counts()
-    with torch.inference_mode(), OpCosts() as costs:
+    with eng._no_grad(), OpCosts() as costs:
         decode_step(eng.params, cfg, cache, toks, pos, eng.acts, eng.ctx)
         torch.cuda.synchronize()
     ROOFLINE[f"{name} decode"] = dict(
@@ -1309,7 +1331,7 @@ def _count_serve(torch, eng, arch, dec_ms, prefill_ms, name=None):
     feed = {"tokens": torch.zeros((g, blen), dtype=torch.int32, device=dev)}
     last = torch.full((g,), blen - 1, dtype=torch.long, device=dev)
     reset_counts()
-    with torch.inference_mode(), OpCosts() as costs:
+    with eng._no_grad(), OpCosts() as costs:
         prefill(eng.params, cfg, feed, eng.cache_len, eng.acts,
                 last_idx=last, ctx=eng.ctx)
         torch.cuda.synchronize()
@@ -1337,6 +1359,207 @@ def _nccl_mesh(torch, dev):
         raise AssertionError(f"process group backend {dist.get_backend()}")
     return init_device_mesh("cuda", (1, 1),
                             mesh_dim_names=("data", "model")), path
+
+
+def phase_serve_sharded(torch, dev, card):
+    """The serve phase's model and requests through
+    ``ServeEngine(ctx=make_ctx(mesh))`` on a ("data", "model") mesh of
+    (1, 1) over NCCL: every parameter a DTensor placed by the "serve"
+    rules, the cache by ``cache_shardings``, the dense layers as DTensor
+    ops between the reference's hints (``shard_hint``).  Gates: the greedy
+    tokens equal the serve phase's exactly (at one rank every
+    redistribute is the identity), ``ppa_fused`` and ``softmax_ppa``
+    launched at least layers x steps times and no plain version ran, the
+    hints redistributed at least layers x steps times.  Returns the
+    launches of each kernel."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_ctx
+    from repro_torch.kernels import read_counts
+    from repro_torch.models.common import hint_counts
+
+    cfg = get_config("internlm2-1.8b").replace(
+        act_impl="ppa", compute_dtype="bfloat16")
+    mesh, store_path = _nccl_mesh(torch, dev)
+    try:
+        lens = SERVE_LENS[:SERVE_REQUESTS]
+        eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
+                                        SERVE_NEW, lens, ctx=make_ctx(mesh))
+        counts, hints = read_counts(), hint_counts["redistributes"]
+        placed = type(eng.params["embed"]).__name__
+        del eng
+        _free(torch)
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    toks = [list(r.output) for r in reqs]
+    n_steps = len(steps)
+    need = cfg.n_layers * n_steps
+    decode = sorted(t for t, adm in steps if adm == 0)
+    dec_ms = decode[len(decode) // 2] * 1e3
+    plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+    log(f"[serve_sharded] internlm2-1.8b {cfg.n_layers}L bf16 "
+        f"act_backend={cfg.act_backend} on DeviceMesh (1, 1) ('data', "
+        f"'model') over nccl, params as {placed}: {sum(map(len, toks))} "
+        f"tokens in {wall:.3f}s over {n_steps} engine steps; decode "
+        f"{dec_ms:.2f} ms/step (median) against serve's "
+        f"{DECODE_MS['serve']:.2f}; shard_hint redistributes {hints} "
+        f"(layers x steps = {need}); launches fused="
+        f"{counts['ppa_fused']['launches']} softmax="
+        f"{counts['softmax_ppa']['launches']}; plain {plain}; card {card}")
+    if placed != "DTensor":
+        raise AssertionError(f"the parameters are {placed}, not DTensors")
+    if toks != TOKENS["serve"]:
+        raise AssertionError("greedy tokens differ from the serve phase's")
+    for k in ("ppa_fused", "softmax_ppa"):
+        if counts[k]["launches"] < need:
+            raise AssertionError(f"{k} launched {counts[k]['launches']} "
+                                 f"times < layers x steps = {need}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran: {plain}")
+    if hints < need:
+        raise AssertionError(f"shard_hint redistributed {hints} times < "
+                             f"layers x steps = {need}")
+    return {k: {"total": counts[k]["launches"]}
+            for k in ("ppa_fused", "softmax_ppa")}, {}
+
+
+#: the dry run's decode cell on the card: the serve phase's slots and cache
+DRYRUN_ARCH = "internlm2-1.8b"
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_JOBS = {
+    "decode_fake": [
+        "-c", "import json; from repro_torch.launch.dryrun import "
+        f"decode_counts; print(json.dumps(decode_counts({DRYRUN_ARCH!r}, "
+        f"{SERVE_SLOTS}, {SERVE_CACHE_LEN})))"],
+    "pod": ["-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+            "--shape", "decode_32k", "--out", str(DRYRUN_DIR)],
+    "multipod": ["-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+                 "--shape", "decode_32k", "--multi-pod", "--out",
+                 str(DRYRUN_DIR)],
+    "hlo": ["-m", "repro_torch.analysis", "--hlo", DRYRUN_ARCH,
+            "decode_32k"],
+}
+
+
+def dryrun_start():
+    """Start the dry run's jobs, which need no card (a fake process
+    group, fake tensors), as subprocesses beside the card's phases: the
+    fake count of the serve phase's decode step at mesh (1, 1), the
+    production cell on one pod and on two, and its ``--hlo`` audit.
+    Returns {job: (process, start time, output file)}."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parent / "src"), CUDA_VISIBLE_DEVICES="")
+    jobs = {}
+    for name, argv in DRYRUN_JOBS.items():
+        out = DRYRUN_DIR / f"{name}.log"
+        f = open(out, "w")
+        jobs[name] = (subprocess.Popen([sys.executable, *argv], stdout=f,
+                                       stderr=subprocess.STDOUT, env=env),
+                      time.perf_counter(), out, f)
+    return jobs
+
+
+def dryrun_stop(jobs) -> None:
+    for p, _, _, f in jobs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        f.close()
+
+
+def _dryrun_wait(jobs):
+    """{job: (exit code, seconds, output)} once every job has ended."""
+    out = {}
+    for name, (p, t0, path, f) in jobs.items():
+        try:
+            rc = p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            rc = "timeout"
+        f.close()
+        out[name] = (rc, time.perf_counter() - t0, path.read_text())
+    return out
+
+
+def phase_dryrun(torch, dev, card, jobs):
+    """(a) The dry run against a real step: the serve phase's decode step
+    of internlm2-1.8b (4 slots x cache 512) counted at mesh (1, 1) on
+    fake tensors (a subprocess: a fake and an NCCL default group cannot
+    share one process) and on the card's real tensors on an NCCL mesh of
+    (1, 1), each under ``OpCosts``: FLOPs, bytes and each kernel's
+    reported bytes equal exactly; the dry run's argument bytes are logged
+    beside ``torch.cuda.memory_allocated`` for the same arguments.
+    (b) The production cells: ``python -m repro_torch.launch.dryrun`` of
+    internlm2-1.8b decode_32k on one pod and on two, and ``python -m
+    repro_torch.analysis --hlo`` of it: exit 0, status ok, the multipod
+    cell's argument bytes below the pod's."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import decode_counts
+
+    res = _dryrun_wait(jobs)
+    for name, (rc, sec, text) in res.items():
+        log(f"[dryrun] {name}: exit {rc} in {sec:.1f}s (a subprocess "
+            f"beside the card's phases)")
+        if rc != 0:
+            raise AssertionError(f"{name} failed:\n{text[-3000:]}")
+    fake = json.loads(res["decode_fake"][2].strip().splitlines()[-1])
+    _free(torch)
+    mesh, store_path = _nccl_mesh(torch, dev)
+    try:
+        real = decode_counts(DRYRUN_ARCH, SERVE_SLOTS, SERVE_CACHE_LEN,
+                             mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    _free(torch)
+    log(f"[dryrun] (a) {DRYRUN_ARCH} decode {SERVE_SLOTS} slots x cache "
+        f"{SERVE_CACHE_LEN} at mesh (1, 1): FLOPs fake {fake['flops']} "
+        f"real {real['flops']}; bytes fake {fake['bytes']} real "
+        f"{real['bytes']}; kernel launches fake {len(fake['kernels'])} real "
+        f"{len(real['kernels'])}; counted in {fake['seconds']:.2f}s (fake, "
+        f"CPU) and {real['seconds']:.2f}s (card); argument bytes "
+        f"{fake['argument_bytes']} (dry run) beside "
+        f"{real['allocated']} that placing the same arguments allocated on "
+        f"the card (torch.cuda.memory_allocated; logged, no gate); card "
+        f"{card}")
+    for key in ("flops", "bytes", "kernels"):
+        if fake[key] != real[key]:
+            raise AssertionError(f"the dry run's {key} differ from the real "
+                                 f"step's: {fake[key]!r:.300} against "
+                                 f"{real[key]!r:.300}")
+    recs = {tag: json.loads((DRYRUN_DIR / f"{DRYRUN_ARCH}__decode_32k__"
+                             f"{tag}.json").read_text())
+            for tag in ("pod", "multipod")}
+    for tag, r in recs.items():
+        if r["status"] != "ok":
+            raise AssertionError(f"{tag}: status {r['status']}")
+        rl, m = r["roofline"], r["memory"]
+        log(f"[dryrun] (b) {DRYRUN_ARCH} decode_32k {tag} ({r['mesh']}, "
+            f"{r['chips']} ranks): counted in {r['t_compile_s']:.1f}s; "
+            f"args {m['argument_bytes'] / 2**30:.3f} GiB/dev, peak "
+            f"{m['peak_bytes_per_device'] / 2**30:.3f} GiB/dev; FLOPs "
+            f"{rl['hlo_flops']:.6e}, bytes {rl['hlo_bytes']:.6e}, "
+            f"collectives {rl['coll_bytes']}; t_compute {rl['t_compute']:.6f}"
+            f" s, t_memory {rl['t_memory']:.6f} s, t_collective "
+            f"{rl['t_collective']:.6f} s -> {rl['bottleneck']}, roofline "
+            f"fraction {rl['roofline_fraction']:.4f} (counted against the "
+            f"H100's published peaks, not measured)")
+    if not (recs["multipod"]["memory"]["argument_bytes"]
+            < recs["pod"]["memory"]["argument_bytes"]):
+        raise AssertionError("the multipod cell's argument bytes are not "
+                             "below the pod's")
+    hlo = res["hlo"][2]
+    if "=== hlo memory:" not in hlo or "=== hlo collectives:" not in hlo:
+        raise AssertionError(f"--hlo printed no tables:\n{hlo[-2000:]}")
+    log("[dryrun] --hlo " + " | ".join(
+        ln.strip() for ln in hlo.splitlines()[-16:] if ln.strip()))
 
 
 def phase_serve_moe_sharded(torch, dev, card):
@@ -3031,62 +3254,84 @@ def main() -> int:
             return None
 
     run("build", phase_build)
-    if not failed:
-        rows = run("kernels", phase_kernels, torch, dev) or []
-        paths = {
-            "serve": run("serve", phase_serve, torch, dev, card),
-            "serve_int": run("serve_int", phase_serve_int, torch, dev)}
-        run("parity", phase_parity, torch, dev)
-        paths["train"] = run("train", phase_train, torch, dev, card)
-        run("train_parity", phase_train_parity, torch, dev)
-        run("train_resume", phase_train_resume, torch, dev)
-        paths["serve_moe"] = run("serve_moe", phase_serve_full, torch, dev,
-                                 card, MOE_ARCH, "serve_moe")
-        if MOE_ARCH in LOADED:
-            paths["serve_moe_sharded"] = run(
-                "serve_moe_sharded", phase_serve_moe_sharded, torch, dev,
-                card)
-        else:
-            failed.append("serve_moe_sharded")
-        run("roofline", phase_roofline, torch, dev, card)
-        LOADED.clear()
-        _free(torch)
-        run("parity_moe", phase_parity, torch, dev, MOE_ARCH, 1,
-            "parity_moe")
-        paths["flash"] = run("flash", phase_flash, torch, dev)
-        paths["serve_hybrid"] = run("serve_hybrid", phase_serve_full,
-                                    torch, dev, card, HYBRID_ARCH,
-                                    "serve_hybrid")
-        run("parity_hybrid", phase_parity, torch, dev, HYBRID_ARCH, 1,
-            "parity_hybrid", HYBRID_PARITY_STAGES)
-        paths["serve_rwkv"] = run("serve_rwkv", phase_serve_full,
-                                  torch, dev, card, RWKV_ARCH, "serve_rwkv")
-        run("parity_rwkv", phase_parity, torch, dev, RWKV_ARCH, 2,
-            "parity_rwkv")
-        paths["serve_whisper"] = run("serve_whisper", phase_serve_full,
-                                     torch, dev, card, WHISPER_ARCH,
-                                     "serve_whisper")
-        run("parity_whisper", phase_parity, torch, dev, WHISPER_ARCH,
-            WHISPER_PARITY_LAYERS, "parity_whisper", None,
-            WHISPER_PARITY_CACHE)
-        paths["serve_vlm"] = run("serve_vlm", phase_serve_full, torch, dev,
-                                 card, VLM_ARCH, "serve_vlm")
-        run("parity_vlm", phase_parity, torch, dev, VLM_ARCH, 2,
-            "parity_vlm")
-        _free(torch)
-        store = run("compile", phase_compile, torch, dev, card)
-        run("workflow", phase_workflow, torch, dev, card)
-        run("sweep", phase_sweep, torch, dev, card, store)
-        paths["tune"] = run("tune", phase_tune, torch, dev, card, store)
-        paths["serve_store"] = run("serve_store", phase_serve_store, torch,
-                                   dev, card, store)
-        paths["tenants"] = run("tenants", phase_tenants, torch, dev, card,
-                               store)
-        paths["chaos"] = run("chaos", phase_chaos, torch, dev, card, store)
+    jobs = {}
+    try:
+        if not failed:
+            jobs = dryrun_start()
+            rows, paths = phases(run, failed, torch, dev, card, jobs)
+    finally:
+        dryrun_stop(jobs)
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
         return 1
+    return report(torch, rows, paths)
+
+
+def phases(run, failed, torch, dev, card, jobs):
+    """Every phase after the build, in order (``run`` each, which adds a
+    failed one's name to ``failed``); returns the kernel rows and each
+    path's launches."""
+    rows = run("kernels", phase_kernels, torch, dev) or []
+    paths = {
+        "serve": run("serve", phase_serve, torch, dev, card)}
+    paths["serve_sharded"] = run("serve_sharded", phase_serve_sharded,
+                                 torch, dev, card)
+    paths["serve_int"] = run("serve_int", phase_serve_int, torch, dev)
+    run("parity", phase_parity, torch, dev)
+    paths["train"] = run("train", phase_train, torch, dev, card)
+    run("train_parity", phase_train_parity, torch, dev)
+    run("train_resume", phase_train_resume, torch, dev)
+    paths["serve_moe"] = run("serve_moe", phase_serve_full, torch, dev,
+                             card, MOE_ARCH, "serve_moe")
+    if MOE_ARCH in LOADED:
+        paths["serve_moe_sharded"] = run(
+            "serve_moe_sharded", phase_serve_moe_sharded, torch, dev,
+            card)
+    else:
+        failed.append("serve_moe_sharded")
+    run("roofline", phase_roofline, torch, dev, card)
+    LOADED.clear()
+    _free(torch)
+    run("dryrun", phase_dryrun, torch, dev, card, jobs)
+    _free(torch)
+    run("parity_moe", phase_parity, torch, dev, MOE_ARCH, 1,
+        "parity_moe")
+    paths["flash"] = run("flash", phase_flash, torch, dev)
+    paths["serve_hybrid"] = run("serve_hybrid", phase_serve_full,
+                                torch, dev, card, HYBRID_ARCH,
+                                "serve_hybrid")
+    run("parity_hybrid", phase_parity, torch, dev, HYBRID_ARCH, 1,
+        "parity_hybrid", HYBRID_PARITY_STAGES)
+    paths["serve_rwkv"] = run("serve_rwkv", phase_serve_full,
+                              torch, dev, card, RWKV_ARCH, "serve_rwkv")
+    run("parity_rwkv", phase_parity, torch, dev, RWKV_ARCH, 2,
+        "parity_rwkv")
+    paths["serve_whisper"] = run("serve_whisper", phase_serve_full,
+                                 torch, dev, card, WHISPER_ARCH,
+                                 "serve_whisper")
+    run("parity_whisper", phase_parity, torch, dev, WHISPER_ARCH,
+        WHISPER_PARITY_LAYERS, "parity_whisper", None,
+        WHISPER_PARITY_CACHE)
+    paths["serve_vlm"] = run("serve_vlm", phase_serve_full, torch, dev,
+                             card, VLM_ARCH, "serve_vlm")
+    run("parity_vlm", phase_parity, torch, dev, VLM_ARCH, 2,
+        "parity_vlm")
+    _free(torch)
+    store = run("compile", phase_compile, torch, dev, card)
+    run("workflow", phase_workflow, torch, dev, card)
+    run("sweep", phase_sweep, torch, dev, card, store)
+    paths["tune"] = run("tune", phase_tune, torch, dev, card, store)
+    paths["serve_store"] = run("serve_store", phase_serve_store, torch,
+                               dev, card, store)
+    paths["tenants"] = run("tenants", phase_tenants, torch, dev, card,
+                           store)
+    paths["chaos"] = run("chaos", phase_chaos, torch, dev, card, store)
+    return rows, paths
+
+
+def report(torch, rows, paths) -> int:
+    """The kernels line and the last line."""
     # each kernel's main path, whose run gives its "launches" and those at
     # its standing shapes; every path's launches are counted from 0 over
     # that path's run alone

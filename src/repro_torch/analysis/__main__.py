@@ -21,10 +21,13 @@ modes, report format and exit codes:
       Recompute certificates for every stored paper-grid artifact and
       diff them against the stored ones (drift = exit 1).
 
+  python -m repro_torch.analysis --hlo <arch> <shape> [variant]
+      The dry run's memory / collective audit of one cell (analysis/hlo.py:
+      the ops OpCosts counted on the fake mesh, not HLO text).
+
   --json switches every engine to the JSON-lines report format.
 
-The reference's ``--hlo`` audit has no counterpart yet: it waits for the
-port's roofline.  Compiles run on the numpy search backend unless
+Compiles run on the numpy search backend unless
 ``$REPRO_TORCH_SEARCH_BACKEND`` or a tuned config next to the store says
 otherwise.
 """
@@ -134,6 +137,7 @@ def main(argv=None) -> int:
     g.add_argument("--certify-grid", action="store_true")
     g.add_argument("--certify-config", metavar="NAF")
     g.add_argument("--diff", action="store_true")
+    g.add_argument("--hlo", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="7-bit grid instead of the full paper grid")
     ap.add_argument("--store", default=None, metavar="DIR",
@@ -142,7 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--order", type=int, default=1)
     ap.add_argument("--quantizer", default="fqa")
     ap.add_argument("--json", action="store_true")
-    ap.add_argument("rest", nargs="*", help="paths (--lint)")
+    ap.add_argument("rest", nargs="*",
+                    help="paths (--lint) or arch/shape args (--hlo)")
     args = ap.parse_args(argv)
 
     if args.lint:
@@ -154,6 +159,9 @@ def main(argv=None) -> int:
                                   args.quantizer, args.json)
     if args.diff:
         return cmd_diff(args.smoke, args.store, args.json)
+    if args.hlo:
+        from .hlo import main as hlo_main
+        return hlo_main(args.rest, json_mode=args.json)
     return 2
 
 

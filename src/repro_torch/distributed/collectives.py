@@ -9,7 +9,11 @@ a gather over several axes, innermost first, lands its blocks in the
 order of a tiled gather over the axes as given (the first one major).
 
 Every call runs its collectives, also on a group of one rank, where they
-are the identity: so a run on one card still goes through NCCL.
+are the identity: so a run on one card still goes through NCCL.  On a
+tensor that needs a gradient they run as autograd-aware functional
+collectives, whose backward is the reference's transpose under
+``shard_map(check_vma=False)``: a gather's is a reduce-scatter, a sum's a
+sum.
 ``counts`` counts the collectives by kind, as the kernels count their
 launches.
 """
@@ -71,9 +75,14 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
         n = dist.get_world_size(group)
         src = x.contiguous()
         # the blocks concatenated along dim 0 (the form every backend takes)
-        out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        _GATHER(out, src, group=group)
+        if _needs_grad(src):
+            from torch.distributed._functional_collectives import (
+                all_gather_tensor_autograd)
+            out = all_gather_tensor_autograd(src, 0, group)
+        else:
+            out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                              dtype=src.dtype, device=src.device)
+            _GATHER(out, src, group=group)
         counts["all-gather"] += 1
         if dim == 0 or n == 1:
             x = out
@@ -90,9 +99,17 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     it is contiguous, and returned."""
     x = x.contiguous()
     for a in _axes(axes):
-        dist.all_reduce(x, group=mesh.get_group(a))
+        if _needs_grad(x):
+            from torch.distributed.nn.functional import all_reduce as ar
+            x = ar(x, group=mesh.get_group(a))
+        else:
+            dist.all_reduce(x, group=mesh.get_group(a))
         counts["all-reduce"] += 1
     return x
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 def ppermute(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -30,14 +30,15 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..models.common import ShardCtx
 from ..tree import map_tree
 
 __all__ = ["make_rules", "param_shardings", "batch_shardings",
            "cache_shardings", "make_ctx", "dp_axes_of", "placements",
-           "local_shard", "distribute", "to_dtensor"]
+           "local_shard", "distribute", "to_dtensor", "wrap_local",
+           "spec_tree", "cache_specs", "local_at", "local_call"]
 
 Spec = Tuple[object, ...]
 
@@ -167,6 +168,67 @@ def local_shard(t: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
     return t
 
 
+def _contiguous_stride(shape) -> tuple:
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.insert(0, n)
+        n *= size
+    return tuple(stride)
+
+
+def wrap_local(local: torch.Tensor, mesh, spec: Spec, shape) -> DTensor:
+    """This rank's shard ``local`` of a global tensor of ``shape`` placed
+    as ``spec`` on ``mesh``, as a DTensor (no communication): the
+    counterpart of ``shard_map`` 's out_specs."""
+    return DTensor.from_local(local, mesh, placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def local_at(t: torch.Tensor, mesh, pls) -> torch.Tensor:
+    """The local shard of ``t`` (a DTensor, or a plain tensor holding the
+    global value, as every rank does) at placements ``pls``."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, pls).to_local()
+
+
+def local_call(mesh, fn, ins, out_spec, shape=None, partial=()):
+    """``shard_map`` for one function: each ``(tensor, spec)`` of ``ins``
+    (a DTensor or a plain global tensor; None passes through) is
+    redistributed to its spec and cut to this rank's shard, ``fn`` runs on
+    the shards, and its result, this rank's shard of a global tensor
+    placed as ``out_spec``, comes back as a DTensor.  ``shape``: the
+    global shape (None: every sharded dim even).  ``partial``: mesh axes
+    over which the result is a pending sum (a row-parallel product).  A
+    function of several results takes a list of specs (and of shapes and
+    of partial axes)."""
+    locs = [None if t is None else local_at(t, mesh, placements(s, mesh))
+            for t, s in ins]
+    out = fn(*locs)
+    if isinstance(out_spec, list):
+        n = len(out)
+        return tuple(_wrap_out(*a) for a in zip(
+            out, [mesh] * n, out_spec, shape or [None] * n,
+            partial or [()] * n))
+    return _wrap_out(out, mesh, out_spec, shape, partial)
+
+
+def _wrap_out(out, mesh, spec, shape, partial) -> DTensor:
+    if shape is None:
+        shape = [n * _ways(mesh, part) for n, part in
+                 zip(out.shape, tuple(spec) + (None,) * out.dim())]
+    if not partial:
+        return wrap_local(out, mesh, spec, shape)
+    pls = list(placements(spec, mesh))
+    for a in partial:
+        pls[axis_names(mesh).index(a)] = Partial()
+    return DTensor.from_local(out, mesh, pls, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
 def to_dtensor(t: torch.Tensor, mesh, spec: Spec) -> DTensor:
     """The global tensor ``t`` (the same on every rank) as a DTensor on
     ``mesh`` that holds only this rank's shard, taken without
@@ -175,13 +237,7 @@ def to_dtensor(t: torch.Tensor, mesh, spec: Spec) -> DTensor:
     local = local_shard(t, mesh, spec)
     if local.numel() < t.numel():
         local = local.clone(memory_format=torch.contiguous_format)
-    stride, n = [], 1
-    for size in reversed(t.shape):
-        stride.insert(0, n)
-        n *= size
-    return DTensor.from_local(local, mesh, placements(spec, mesh),
-                              run_check=False, shape=t.shape,
-                              stride=tuple(stride))
+    return wrap_local(local, mesh, spec, t.shape)
 
 
 def distribute(t: torch.Tensor, target) -> DTensor:
@@ -196,14 +252,21 @@ def distribute(t: torch.Tensor, target) -> DTensor:
     return distribute_tensor(t, mesh, list(pls))
 
 
-def param_shardings(specs, mesh, rules) -> dict:
-    """``(mesh, placements)`` for every leaf of a spec tree (``P`` leaves,
-    ``param_specs``)."""
+def spec_tree(specs, mesh, rules) -> dict:
+    """The spec (a tuple, one entry a dim) of every leaf of a spec tree
+    (``P`` leaves, ``param_specs``) under ``rules``."""
     def leaf(p):
         spec = _spec_for(p.axes, rules)
         _check_divides(p.shape, spec, mesh)
-        return mesh, placements(spec, mesh)
+        return spec
     return map_tree(leaf, specs)
+
+
+def param_shardings(specs, mesh, rules) -> dict:
+    """``(mesh, placements)`` for every leaf of a spec tree (``P`` leaves,
+    ``param_specs``)."""
+    return map_tree(lambda spec: (mesh, placements(spec, mesh)),
+                    spec_tree(specs, mesh, rules))
 
 
 def batch_shardings(mesh, batch_abstract, batch_sharded: bool = True
@@ -262,19 +325,27 @@ def cache_spec(name: str, nd: int, b, kv_shard: str = "heads") -> Spec:
     return spec
 
 
-def cache_shardings(mesh, cache_abstract, batch_sharded: bool = True,
-                    kv_shard: str = "heads") -> dict:
-    """The decode cache's ``(mesh, placements)`` a leaf, by leaf name
-    (:func:`cache_spec`)."""
+def cache_specs(mesh, cache_abstract, batch_sharded: bool = True,
+                kv_shard: str = "heads") -> dict:
+    """The decode cache's spec a leaf, by leaf name (:func:`cache_spec`)."""
     dp = dp_axes_of(mesh)
     b = _one(dp) if (batch_sharded and dp) else None
 
     def leaf(name, x):
         spec = cache_spec(name, len(x.shape), b, kv_shard)
         _check_divides(x.shape, spec, mesh)
-        return mesh, placements(spec, mesh)
+        return spec
 
     return _map_with_name(leaf, cache_abstract)
+
+
+def cache_shardings(mesh, cache_abstract, batch_sharded: bool = True,
+                    kv_shard: str = "heads") -> dict:
+    """The decode cache's ``(mesh, placements)`` a leaf, by leaf name
+    (:func:`cache_spec`)."""
+    return map_tree(lambda spec: (mesh, placements(spec, mesh)),
+                    cache_specs(mesh, cache_abstract, batch_sharded,
+                                kv_shard))
 
 
 def make_ctx(mesh, batch_sharded: bool = True) -> ShardCtx:

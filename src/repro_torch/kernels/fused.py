@@ -28,6 +28,7 @@ import torch
 from ..roofline import bounds, op_costs
 from .build import (VECTOR_BYTES, check_cuda_input, get_lib, raise_on_error,
                     stream_of, vector_split)
+from .local import is_dtensor, no_storage, on_local
 from .ref import ppa_eval_ref
 
 __all__ = ["DEFAULT_LAUNCH", "LAUNCH_CANDIDATES", "condition_f32", "counts",
@@ -159,7 +160,14 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False
                     ) -> torch.Tensor:
     """``T(x)`` (or ``x * T(x)`` with ``gate``) for a float32 or bfloat16
     tensor of any shape; the output has the input's dtype.  The kernel
-    launches at :func:`default_launch`."""
+    launches at :func:`default_launch`.  On a DTensor it runs on the local
+    shard; on a fake tensor it reports its work and launches nothing
+    (kernels/local.py)."""
+    if is_dtensor(x):
+        return on_local(lambda t: ppa_fused_apply(tc, t, gate), x)
+    if no_storage(x):
+        _report(tc, x, gate)
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return ppa_fused_plain(tc, x, gate)
     check_cuda_input(x, tuple(_DTYPE_CODE), "ppa_fused")
@@ -187,6 +195,11 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False
     shape_counts[tuple(x.shape)] += 1
     variant_counts[(tuple(x.shape), str(x.dtype).replace("torch.", ""),
                     tc.naf, bool(gate))] += 1
+    _report(tc, x, gate)
+    return y
+
+
+def _report(tc, x: torch.Tensor, gate: bool) -> None:
     if op_costs.counting():
         op_costs.report_kernel(
             "ppa_fused", x.shape, bounds.fused_work(
@@ -194,4 +207,3 @@ def ppa_fused_apply(tc, x: torch.Tensor, gate: bool = False
                 tc.plan.round_mults, bool(gate)),
             itemsize=x.element_size(), table=tc.naf, gate=bool(gate),
             segments=tc.num_segments, order=tc.plan.order)
-    return y

@@ -27,6 +27,10 @@ is the softmax backward kernel of the same source, the closed form of the
 reference composition's straight-through vjp.  The kernel wrappers run
 their plain versions on CPU tensors.  All backends are bit-identical;
 softmax agrees within 1e-6.
+
+On a DTensor (a mesh's activation) each op runs on the local shard, a
+pending sum reduced first (``kernels/local.py``); the softmax's row must
+be whole on a rank.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ..core.functions import exact, get_naf
 from ..core.schemes import PPATable
 from ..device import resolve_device
 from .fused import condition_f32, eval_ref, ppa_fused_apply
+from .local import is_dtensor, on_local
 from .ppa import ppa_eval_int
 from .ref import horner_int
 from .softmax_ppa import softmax_ppa, softmax_ppa_bwd, softmax_ppa_plain
@@ -218,14 +223,14 @@ def _apply(tc: TableConsts, x: torch.Tensor, backend: str, gate: bool
 def ppa_apply(tc: TableConsts, x: torch.Tensor, *, backend: str = "ref"
               ) -> torch.Tensor:
     """float in -> fixed-point PPA datapath -> float out (x's dtype)."""
-    return _apply(tc, x, backend, False)
+    return on_local(lambda t: _apply(tc, t, backend, False), x)
 
 
 def ppa_gate(tc: TableConsts, x: torch.Tensor, *, backend: str = "ref"
              ) -> torch.Tensor:
     """Gated path ``x * T(x)``; the multiply runs in float32 before the
     output cast on every backend (inside the fused kernel on cuda_fused)."""
-    return _apply(tc, x, backend, True)
+    return on_local(lambda t: _apply(tc, t, backend, True), x)
 
 
 class _STE(torch.autograd.Function):
@@ -252,6 +257,8 @@ class _STE(torch.autograd.Function):
 def ppa_act(tc: TableConsts, x: torch.Tensor, backend: str = "ref"
             ) -> torch.Tensor:
     """``T(x)`` with the straight-through exact-derivative backward."""
+    if is_dtensor(x):
+        return on_local(lambda t: ppa_act(tc, t, backend), x)
     if torch.is_grad_enabled() and x.requires_grad:
         return _STE.apply(x, tc, backend, False)
     return _apply(tc, x, backend, False)
@@ -261,6 +268,8 @@ def ppa_gate_act(tc: TableConsts, x: torch.Tensor, backend: str = "ref"
                  ) -> torch.Tensor:
     """``x * T(x)`` with the backward of the full gated activation
     (silu'/gelu'), not of the inner table alone."""
+    if is_dtensor(x):
+        return on_local(lambda t: ppa_gate_act(tc, t, backend), x)
     if torch.is_grad_enabled() and x.requires_grad:
         return _STE.apply(x, tc, backend, True)
     return _apply(tc, x, backend, True)
@@ -313,6 +322,11 @@ def ppa_softmax(tc_exp2: TableConsts, x: torch.Tensor, *, axis: int = -1,
     straight-through vjp.  Otherwise it is the reference composition
     around ``ppa_act``.
     """
+    if is_dtensor(x):
+        return on_local(
+            lambda t, w: ppa_softmax(tc_exp2, t, axis=axis, where=w,
+                                     backend=backend),
+            x, where, axis=axis)
     if not get_backend(backend).kernel_softmax:
         return softmax_ppa_plain(
             x, tc_exp2, where, axis,

@@ -16,6 +16,7 @@ import torch
 from ..roofline import bounds, op_costs
 from .build import (VECTOR_BYTES, check_cuda_input, get_lib, raise_on_error,
                     stream_of, vector_split)
+from .local import is_dtensor, no_storage, on_local
 from .ref import ppa_eval_ref
 
 __all__ = ["counts", "ppa_eval_int", "shape_counts"]
@@ -43,12 +44,19 @@ def ppa_eval_int(tc, x_int: torch.Tensor) -> torch.Tensor:
     outside its interval.  The kernel selects the row of ``clamp(x, lo,
     hi - 1)`` in the idx_lut, which is the search's row for every int32
     input only if the idx_lut runs from row 0 to row S - 1: a table that
-    does not is refused, on every device."""
+    does not is refused, on every device.  On a DTensor it runs on the
+    local shard; on a fake tensor it reports its work and launches nothing
+    (kernels/local.py)."""
     if not tc.lut_spans_rows:
         raise ValueError(
             f"ppa_int: table {tc.naf}'s idx_lut does not run from row 0 to "
             f"row {tc.num_segments - 1}: the kernel's clamped idx_lut select "
             "would not be the search's outside [lo, hi)")
+    if is_dtensor(x_int):
+        return on_local(lambda t: ppa_eval_int(tc, t), x_int)
+    if no_storage(x_int):
+        _report(tc, x_int)
+        return torch.empty_like(x_int)
     if x_int.device.type == "cpu":
         return ppa_eval_ref(x_int, tc.starts, tc.coefs, tc.plan)
     check_cuda_input(x_int, (torch.int32,), "ppa_int")
@@ -68,10 +76,14 @@ def ppa_eval_int(tc, x_int: torch.Tensor) -> torch.Tensor:
     raise_on_error(rc, "ppa_int")
     counts["launches"] += 1
     shape_counts[tuple(x_int.shape)] += 1
+    _report(tc, x_int)
+    return y
+
+
+def _report(tc, x_int: torch.Tensor) -> None:
     if op_costs.counting():
         op_costs.report_kernel(
             "ppa_int", x_int.shape, bounds.int_work(
                 x_int.numel(), tc.num_segments, tc.plan.order,
                 tc.plan.round_mults), table=tc.naf,
             segments=tc.num_segments, order=tc.plan.order)
-    return y

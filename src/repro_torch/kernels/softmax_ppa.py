@@ -27,6 +27,7 @@ import torch
 from ..roofline import bounds, op_costs
 from .build import check_cuda_input, get_lib, raise_on_error, stream_of
 from .fused import condition_f32, eval_ref
+from .local import is_dtensor, no_storage, on_local
 
 __all__ = ["bwd_counts", "bwd_shape_counts", "counts", "route",
            "shape_counts", "softmax_ppa", "softmax_ppa_bwd",
@@ -175,7 +176,17 @@ def softmax_ppa(x: torch.Tensor, tc, where: Optional[torch.Tensor] = None
     """Softmax over the last axis of a contiguous float32 tensor of any
     shape.  ``where`` (bool, broadcastable to ``x``) marks the columns that
     take part; masked columns give 0, an all-masked row gives 0 everywhere.
-    The kernel reads ``where`` through its broadcast strides, unexpanded."""
+    The kernel reads ``where`` through its broadcast strides, unexpanded.
+    On a DTensor it runs on the local rows (the last axis unsharded); on a
+    fake tensor it reports its work and launches nothing
+    (kernels/local.py)."""
+    if is_dtensor(x):
+        return on_local(lambda t, w: softmax_ppa(t, tc, w), x, where,
+                        axis=-1)
+    if no_storage(x):
+        if op_costs.counting():
+            _report("softmax_ppa", bounds.softmax_work, x, tc, where)
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return softmax_ppa_plain(x, tc, where)
     y, args = _launch_args(x, tc, where, "softmax_ppa", _LANE_VALUES)
@@ -255,7 +266,15 @@ def softmax_ppa_bwd(x: torch.Tensor, g: torch.Tensor, tc,
     :func:`softmax_ppa_bwd_plain`): ``x`` the forward's input and ``g`` the
     gradient of its output, contiguous float32 of one shape, ``where`` as
     for :func:`softmax_ppa`.  The kernel recomputes the forward's row max,
-    exponentials and sum rather than reading them."""
+    exponentials and sum rather than reading them.  DTensors and fake
+    tensors as for :func:`softmax_ppa`."""
+    if is_dtensor(x):
+        return on_local(lambda t, gg, w: softmax_ppa_bwd(t, gg, tc, w), x, g,
+                        where, axis=-1)
+    if no_storage(x):
+        if op_costs.counting():
+            _report("softmax_ppa_bwd", bounds.softmax_bwd_work, x, tc, where)
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return softmax_ppa_bwd_plain(x, g, tc, where)
     dx, args = _launch_args(x, tc, where, "softmax_ppa_bwd",

@@ -26,8 +26,9 @@ from typing import Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..kernels.local import is_dtensor
 from .activations import ActBundle
-from .common import P
+from .common import LOCAL, P, ShardCtx, shard_hint
 from .layers import rmsnorm, rope
 
 __all__ = ["AttnCfg", "attn_params", "attention", "cross_attention_cached",
@@ -77,11 +78,46 @@ def attn_params(cfg: AttnCfg, layers: Optional[int] = None) -> dict:
     return out
 
 
+def _on_mesh(ctx: Optional[ShardCtx], x) -> bool:
+    return ctx is not None and ctx.mesh is not None and is_dtensor(x)
+
+
+def _heads_proj(x: torch.Tensor, w: torch.Tensor,
+                ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """``einsum("btd,dhe->bthe")``; on a mesh column-parallel: each rank's
+    batch rows against its heads of the whole (FSDP-gathered) weight."""
+    if not _on_mesh(ctx, x):
+        return torch.einsum("btd,dhe->bthe", x, w)
+    from ..distributed.sharding import local_call
+    bs, tp = ctx.batch_spec, ctx.tp_axis
+    return local_call(
+        ctx.mesh, lambda a, b: torch.einsum("btd,dhe->bthe", a, b),
+        [(x, (bs, None, None)), (w, (None, tp, None))], (bs, None, tp, None),
+        shape=(x.shape[0], x.shape[1], w.shape[1], w.shape[2]))
+
+
+def _out_proj(out: torch.Tensor, w: torch.Tensor,
+              ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """``_einsum("bthd,hde->bte")``; on a mesh row-parallel: each rank's
+    heads against its rows of the weight, the result a pending sum over
+    "model"."""
+    if not _on_mesh(ctx, out):
+        return _einsum("bthd,hde->bte", out, w)
+    from ..distributed.sharding import local_call
+    bs, tp = ctx.batch_spec, ctx.tp_axis
+    return local_call(
+        ctx.mesh, lambda a, b: _einsum("bthd,hde->bte", a, b),
+        [(out, (bs, None, tp, None)), (w, (tp, None, None))],
+        (bs, None, None), shape=(out.shape[0], out.shape[1], w.shape[2]),
+        partial=(tp,))
+
+
 def _project_q(params: dict, cfg: AttnCfg, x: torch.Tensor,
-               pos: Optional[torch.Tensor]) -> torch.Tensor:
+               pos: Optional[torch.Tensor], ctx: Optional[ShardCtx] = None
+               ) -> torch.Tensor:
     """The query projection, then the bias, the qk rmsnorm and RoPE (none
     where ``pos`` is None: cross attention)."""
-    q = torch.einsum("btd,dhe->bthe", x, params["wq"])
+    q = _heads_proj(x, params["wq"], ctx)
     if cfg.qkv_bias:
         q = q + params["bq"]
     if cfg.qk_norm:
@@ -92,10 +128,10 @@ def _project_q(params: dict, cfg: AttnCfg, x: torch.Tensor,
 
 
 def _project_kv(params: dict, cfg: AttnCfg, x: torch.Tensor,
-                pos: Optional[torch.Tensor]):
+                pos: Optional[torch.Tensor], ctx: Optional[ShardCtx] = None):
     """The key and value projections, as :func:`_project_q`."""
-    k = torch.einsum("bsd,dhe->bshe", x, params["wk"])
-    v = torch.einsum("bsd,dhe->bshe", x, params["wv"])
+    k = _heads_proj(x, params["wk"], ctx)
+    v = _heads_proj(x, params["wv"], ctx)
     if cfg.qkv_bias:
         k = k + params["bk"]
         v = v + params["bv"]
@@ -183,6 +219,19 @@ def _flash_attn(q, k, v, q_pos, k_pos, cfg: AttnCfg, window,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, dh).to(q.dtype)
 
 
+def _heads_local(ctx: ShardCtx, fn, q, k, v, *extra) -> torch.Tensor:
+    """``fn(q, k, v, *extra)``, the attention core; on a mesh on each
+    rank's batch rows and heads (as ``shard_map`` would run it: every
+    (row, head) is independent), ``extra`` given as (tensor, spec)
+    pairs."""
+    if ctx.mesh is None or not is_dtensor(q):
+        return fn(q, k, v, *(t for t, _ in extra))
+    from ..distributed.sharding import local_call
+    hs = (ctx.batch_spec, None, ctx.tp_axis, None)
+    return local_call(ctx.mesh, fn, [(q, hs), (k, hs), (v, hs), *extra], hs,
+                      shape=q.shape)
+
+
 def _arange(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, dtype=torch.int32, device=device).expand(b, t)
 
@@ -191,32 +240,43 @@ def attention(params: dict, cfg: AttnCfg, x: torch.Tensor, acts: ActBundle,
               *, x_kv: Optional[torch.Tensor] = None,
               positions: Optional[torch.Tensor] = None,
               window: Optional[int] = None, impl: str = "dense",
-              return_kv: bool = False):
+              return_kv: bool = False, ctx: Optional[ShardCtx] = None):
     """Full-sequence attention (training and prefill), ``impl`` "dense" or
     "flash"; ``window`` overrides ``cfg.window``.  Self-attention on ``x``,
     or cross attention from ``x`` to ``x_kv`` (its positions ``arange(S)``,
     no rope on either side).  With ``return_kv`` also returns the
-    (post-rope) K and V: the decode cache's entries, or ``cross_kv``'s."""
+    (post-rope) K and V: the decode cache's entries, or ``cross_kv``'s.
+    On a mesh (``ctx``) q, k and the output are hinted heads over
+    "model"."""
+    ctx = ctx or LOCAL
     b, t, _ = x.shape
     if positions is None:
         positions = _arange(b, t, x.device)
     if x_kv is None:
-        q = _project_q(params, cfg, x, positions)
-        k, v = _project_kv(params, cfg, x, positions)
+        q = _project_q(params, cfg, x, positions, ctx)
+        k, v = _project_kv(params, cfg, x, positions, ctx)
         kv_positions = positions
     else:
-        q = _project_q(params, cfg, x, None)
-        k, v = _project_kv(params, cfg, x_kv, None)
+        q = _project_q(params, cfg, x, None, ctx)
+        k, v = _project_kv(params, cfg, x_kv, None, ctx)
         kv_positions = _arange(b, x_kv.shape[1], x.device)
+    q = shard_hint(q, ctx, ctx.batch_spec, None, ctx.tp_axis, None)
+    k = shard_hint(k, ctx, ctx.batch_spec, None, ctx.tp_axis, None)
     win = window if window is not None else cfg.window
+    bs = (ctx.batch_spec, None)
     if impl == "flash":
-        out = _flash_attn(q, k, v, positions, kv_positions, cfg, win, acts)
+        out = _heads_local(
+            ctx, lambda *a: _flash_attn(*a, cfg, win, acts), q, k, v,
+            (positions, bs), (kv_positions, bs))
     elif impl == "dense":
-        out = _dense_attn(q, k, v, _mask(positions, kv_positions, cfg, win),
-                          cfg.scale, acts)
+        out = _heads_local(
+            ctx, lambda q, k, v, qp, kp: _dense_attn(
+                q, k, v, _mask(qp, kp, cfg, win), cfg.scale, acts),
+            q, k, v, (positions, bs), (kv_positions, bs))
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    y = torch.einsum("bthd,hde->bte", out, params["wo"])
+    out = shard_hint(out, ctx, ctx.batch_spec, None, ctx.tp_axis, None)
+    y = _out_proj(out, params["wo"], ctx)
     if return_kv:
         return y, (k, v)
     return y
@@ -237,44 +297,79 @@ def init_kv_cache(batch: int, cache_len: int, cfg: AttnCfg,
 
 def decode_attention(params: dict, cfg: AttnCfg, x: torch.Tensor,
                      cache: dict, pos: torch.Tensor, acts: ActBundle, *,
-                     window: Optional[int] = None
+                     window: Optional[int] = None,
+                     ctx: Optional[ShardCtx] = None
                      ) -> Tuple[torch.Tensor, dict]:
     """One decode step: write the new K/V into its ring slot (in place),
     attend.  x: (B, 1, D); pos: (B,) absolute position of the new token;
-    ``window`` overrides ``cfg.window``."""
-    b = x.shape[0]
+    ``window`` overrides ``cfg.window``.  No hint here (the reference's
+    decode attention has none); on a mesh the core runs on each rank's
+    rows and heads."""
+    ctx = ctx or LOCAL
     cache_len = cache["k"].shape[1]
-    q = _project_q(params, cfg, x, pos[:, None])
-    k_new, v_new = _project_kv(params, cfg, x, pos[:, None])
+    q = _project_q(params, cfg, x, pos[:, None], ctx)
+    k_new, v_new = _project_kv(params, cfg, x, pos[:, None], ctx)
     slot = (pos % cache_len).long()
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][bidx, slot] = pos.to(torch.int32)
+    for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0]), ("pos", pos)):
+        put_slots(cache[name], slot, new.to(cache[name].dtype))
     win = window if window is not None else cfg.window
-    valid = _mask(pos[:, None], cache["pos"], cfg, win)   # (B, 1, S)
-    out = _dense_attn(q, cache["k"], cache["v"], valid, cfg.scale, acts)
-    y = _einsum("bthd,hde->bte", out, params["wo"])
+    bs = (ctx.batch_spec, None)
+    out = _heads_local(
+        ctx, lambda q, k, v, qp, kp: _dense_attn(
+            q, k, v, _mask(qp, kp, cfg, win), cfg.scale, acts),   # (B, 1, S)
+        q, cache["k"], cache["v"], (pos[:, None], bs), (cache["pos"], bs))
+    y = _out_proj(out, params["wo"], ctx)
     return y, cache
+
+
+def put_slots(dst: torch.Tensor, slot: torch.Tensor, val: torch.Tensor
+              ) -> None:
+    """``dst[b, slot[b]] = val[b]`` for every row ``b`` of a ring cache
+    (B, S, ...), in place.  On a DTensor cache each rank writes its own
+    rows of its local shard (the ring dim must not be sharded): ``slot``
+    and ``val`` are cut as the cache is."""
+    if not is_dtensor(dst):
+        dst[torch.arange(dst.shape[0], device=dst.device), slot] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..distributed.sharding import local_at
+    mesh, pls = dst.device_mesh, dst.placements
+    if any(isinstance(p, Shard) and p.dim == 1 for p in pls):
+        raise NotImplementedError("put_slots: the cache's ring dim is "
+                                  f"sharded ({pls})")
+    vpls = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+            else Replicate() for p in pls]
+    spls = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pls]
+    loc = dst.to_local()
+    rows = torch.arange(loc.shape[0], device=loc.device)
+    loc[rows, local_at(slot, mesh, spls)] = local_at(val, mesh, vpls)
 
 
 def cross_attention_cached(params: dict, cfg: AttnCfg, x: torch.Tensor,
                            k: torch.Tensor, v: torch.Tensor,
                            acts: ActBundle, *,
-                           enc_valid: Optional[torch.Tensor] = None
+                           enc_valid: Optional[torch.Tensor] = None,
+                           ctx: Optional[ShardCtx] = None
                            ) -> torch.Tensor:
     """Cross attention of the decoder's ``x`` (B, T, D) against the
     encoder's K/V (B, S, Hk, Dh) from the cache; every encoder position
     valid unless ``enc_valid`` (B, S) bool says otherwise."""
-    b, t, _ = x.shape
-    s = k.shape[1]
-    q = _project_q(params, cfg, x, None)
-    if enc_valid is None:
-        valid = torch.ones((b, t, s), dtype=torch.bool, device=x.device)
-    else:
-        valid = enc_valid[:, None, :].expand(b, t, s)
-    out = _dense_attn(q, k, v, valid, cfg.scale, acts)
-    return _einsum("bthd,hde->bte", out, params["wo"])
+    ctx = ctx or LOCAL
+    q = _project_q(params, cfg, x, None, ctx)
+
+    def core(q, k, v, ev):
+        b, t, s = q.shape[0], q.shape[1], k.shape[1]
+        if ev is None:
+            valid = torch.ones((b, t, s), dtype=torch.bool, device=q.device)
+        else:
+            valid = ev[:, None, :].expand(b, t, s)
+        return _dense_attn(q, k, v, valid, cfg.scale, acts)
+
+    out = _heads_local(ctx, core, q, k, v,
+                       (enc_valid, (ctx.batch_spec, None)))
+    return _out_proj(out, params["wo"], ctx)
 
 
 def cross_kv(params: dict, cfg: AttnCfg, enc: torch.Tensor

@@ -10,7 +10,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .common import P
+from ..kernels.local import is_dtensor
+from .common import P, ShardCtx, shard_hint, tp_matmul
 
 __all__ = ["rmsnorm_params", "rmsnorm", "layernorm_params", "layernorm",
            "mean_last", "rope", "rope_freqs",
@@ -87,28 +88,82 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
     return out.to(x.dtype)
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding gather.  tokens: (B, T) int -> (B, T, E)."""
-    return table[tokens.long()]
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """Embedding gather.  tokens: (B, T) int -> (B, T, E).  On a mesh it is
+    the reference's lowering: the table's shards all-gathered, then a
+    local gather of the rank's batch rows, hinted batch over the dp
+    axes."""
+    if ctx is None or ctx.mesh is None:
+        return table[tokens.long()]
+    from ..distributed.sharding import local_call
+    bs = ctx.batch_spec
+    out = local_call(ctx.mesh, lambda tab, tok: tab[tok.long()],
+                     [(table, (None, None)), (tokens, (bs, None))],
+                     (bs, None, None),
+                     shape=tuple(tokens.shape) + (table.shape[1],))
+    return shard_hint(out, ctx, bs, None, None)
 
 
-def lm_head_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """x: (..., E) @ (V, E)^T -> (..., V)."""
-    return x @ table.transpose(0, 1)
+def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
+                   ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """x: (..., E) @ (V, E)^T -> (..., V); on a mesh vocab-parallel (the
+    logits' last dim split over "model")."""
+    return tp_matmul(x, table.transpose(0, 1), ctx)
 
 
 def _chunk_nll(xs: torch.Tensor, head: torch.Tensor, ls: torch.Tensor,
-               ms: torch.Tensor) -> torch.Tensor:
-    logits = lm_head_logits(xs.to(torch.float32), head.to(torch.float32))
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, ls.long()[..., None])[..., 0]
+               ms: torch.Tensor, ctx: Optional[ShardCtx] = None
+               ) -> torch.Tensor:
+    logits = lm_head_logits(xs.to(torch.float32), head.to(torch.float32),
+                            ctx)
+    if is_dtensor(logits):
+        lse, gold = _lse_gold_placed(logits, ls)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ls.long()[..., None])[..., 0]
     return torch.sum((lse - gold) * ms)
+
+
+def _lse_gold_placed(logits, labels):
+    """logsumexp and the label's logit of DTensor logits (B, T, V), the
+    vocab possibly sharded (vocab-parallel): the max and the sum reduce
+    across the shards, and each rank picks the labels that fall in its
+    vocab range, the others adding 0 (a pending sum over the ranks that
+    split the vocab)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    from ..distributed.sharding import local_at
+    mesh = logits.device_mesh
+    pls = [Replicate() if p.is_partial() else p for p in logits.placements]
+    logits = logits.redistribute(mesh, pls)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = (m + torch.log(torch.sum(torch.exp(logits - m), dim=-1,
+                                   keepdim=True)))[..., 0]
+    shape, off = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                       pls)
+    v0, vn = off[-1], shape[-1]
+    rows = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+            for p in pls]
+    lab = local_at(labels, mesh, rows).long()
+    mine = (lab >= v0) & (lab < v0 + vn)
+    g = torch.gather(logits.to_local(), -1,
+                     (lab - v0).clamp(0, vn - 1)[..., None])[..., 0]
+    g = torch.where(mine, g, 0.0)
+    gold = DTensor.from_local(
+        g, mesh, [Partial() if isinstance(p, Shard) and p.dim == 2 else q
+                  for p, q in zip(pls, rows)],
+        run_check=False, shape=lse.shape, stride=lse.stride())
+    return lse, gold
 
 
 def cross_entropy_chunked(x: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, *,
                           mask: Optional[torch.Tensor] = None,
-                          num_chunks: int = 8
+                          num_chunks: int = 8,
+                          ctx: Optional[ShardCtx] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross entropy without materializing the full (B, T, V) logits.
 
@@ -128,7 +183,7 @@ def cross_entropy_chunked(x: torch.Tensor, head: torch.Tensor,
     for i in range(num_chunks):
         sl = slice(i * c, (i + 1) * c)
         total = total + checkpoint(_chunk_nll, x[:, sl], head,
-                                   labels[:, sl], mask[:, sl],
+                                   labels[:, sl], mask[:, sl], ctx,
                                    use_reentrant=False)
     denom = torch.clamp_min(torch.sum(mask), 1.0)
     return total / denom, denom

@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 
 from .activations import ActBundle
-from .common import P
+from .common import LOCAL, P, ShardCtx, shard_hint, tp_matmul
 
 __all__ = ["gated_mlp_params", "gated_mlp", "mlp_params", "mlp"]
 
@@ -28,13 +28,18 @@ def gated_mlp_params(d_model: int, d_ff: int, layers: Optional[int] = None
 
 
 def gated_mlp(params: dict, x: torch.Tensor, acts: ActBundle,
-              gate: str = "silu") -> torch.Tensor:
+              gate: str = "silu", ctx: Optional[ShardCtx] = None
+              ) -> torch.Tensor:
     """SwiGLU: down( act(x @ w_gate) * (x @ w_up) ).  With a PPA bundle the
-    silu is the gated sigmoid_wide table (the fused kernel on the card)."""
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
+    silu is the gated sigmoid_wide table (the fused kernel on the card).
+    On a mesh the hidden is hinted (batch, -, model) before the down
+    projection."""
+    ctx = ctx or LOCAL
+    g = tp_matmul(x, params["w_gate"], ctx)
+    u = tp_matmul(x, params["w_up"], ctx)
     h = acts.gate(gate)(g) * u
-    return h @ params["w_down"]
+    h = shard_hint(h, ctx, ctx.batch_spec, None, ctx.tp_axis)
+    return tp_matmul(h, params["w_down"], ctx, row=True)
 
 
 def mlp_params(d_model: int, d_ff: int, layers: Optional[int] = None,
@@ -50,14 +55,17 @@ def mlp_params(d_model: int, d_ff: int, layers: Optional[int] = None,
 
 
 def mlp(params: dict, x: torch.Tensor, acts: ActBundle,
-        gate: str = "gelu") -> torch.Tensor:
+        gate: str = "gelu", ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Plain 2-layer MLP (whisper's): down(act(x @ w_up + b_up)) + b_down.
     With a PPA bundle the gelu is the gated ``gelu_inner`` table (the fused
     kernel on the card)."""
-    h = x @ params["w_up"]
+    ctx = ctx or LOCAL
+    h = tp_matmul(x, params["w_up"], ctx)
     if "b_up" in params:
         h = h + params["b_up"]
-    y = acts.gate(gate)(h) @ params["w_down"]
+    h = shard_hint(acts.gate(gate)(h), ctx, ctx.batch_spec, None,
+                   ctx.tp_axis)
+    y = tp_matmul(h, params["w_down"], ctx, row=True)
     if "b_down" in params:
         y = y + params["b_down"]
     return y

@@ -165,7 +165,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoECfg, acts: ActBundle,
     else:
         y, aux = _moe_sharded(params, x, cfg, acts, ctx)
     if cfg.n_shared:
-        y = y + gated_mlp(params["shared"], x, acts, cfg.gate)
+        y = y + gated_mlp(params["shared"], x, acts, cfg.gate, ctx)
     return y, aux
 
 
@@ -200,8 +200,10 @@ def shard_experts(params: dict, cfg: MoECfg, ctx: ShardCtx) -> dict:
 
 
 def _moe_sharded(params, x, cfg: MoECfg, acts, ctx: ShardCtx):
+    from torch.distributed.tensor import DTensor
+
     from ..distributed.collectives import all_gather
-    from ..distributed.sharding import local_shard
+    from ..distributed.sharding import local_shard, wrap_local
     mesh = ctx.mesh
     dp, tp = _mesh_axes(ctx)
     bspec = dp if (ctx.batch_sharded and dp) else None
@@ -210,12 +212,18 @@ def _moe_sharded(params, x, cfg: MoECfg, acts, ctx: ShardCtx):
     wg = local_shard(params["w_gate"], mesh, wspec)
     wu = local_shard(params["w_up"], mesh, wspec)
     wd = local_shard(params["w_down"], mesh, dspec)
+    router = local_shard(params["router"], mesh, (None, None))
     # the rank's batch rows, as shard_map's in_specs cut them
     x_loc = local_shard(x, mesh, (bspec, None, None))
-    y, aux = _moe_body(params["router"], wg, wu, wd, x_loc, cfg=cfg,
+    y, aux = _moe_body(router, wg, wu, wd, x_loc, cfg=cfg,
                        acts=acts, e_loc=e_loc, dp=dp, tp=tp,
                        batch_sharded=bool(bspec), mesh=mesh)
-    # the global result, as shard_map's out_specs assemble it
+    if isinstance(x, DTensor):
+        # a DTensor activation: the result at shard_map's out_specs
+        return (wrap_local(y, mesh, (bspec, None, None), x.shape),
+                wrap_local(aux, mesh, (), ()))
+    # a plain (replicated) activation: the global result, as shard_map's
+    # out_specs assemble it
     if bspec:
         y = all_gather(y, mesh, dp, dim=0)
     return y, aux

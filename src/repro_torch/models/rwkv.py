@@ -26,14 +26,14 @@ import torch
 
 from ..device import resolve_device
 from .activations import ActBundle
-from .common import P
+from .common import LOCAL, P, ShardCtx, shard_hint
 from .layers import rmsnorm
 from .scan import associative_scan
 from .ssm import _cat_promoted, _combine, chunked
 
 __all__ = ["RWKVCfg", "rwkv_time_params", "rwkv_channel_params",
            "rwkv_time_mix", "rwkv_channel_mix", "init_rwkv_state",
-           "time_core"]
+           "time_core", "time_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,31 +138,86 @@ def time_core(params, cfg: RWKVCfg, x, x_last, s0, acts: ActBundle):
 
 
 def rwkv_time_mix(params: dict, cfg: RWKVCfg, x: torch.Tensor,
-                  acts: ActBundle, return_state: bool = False):
+                  acts: ActBundle, return_state: bool = False,
+                  ctx: Optional[ShardCtx] = None):
     """Full-sequence time-mix; with ``return_state`` also the final carry
     (x[:, -1:], S)."""
     b, _, d = x.shape
 
-    def step(xi, x_last, s):
-        return time_core(params, cfg, xi, x_last, s, acts)
+    def run(p, c, x, x_last, s):
+        def step(xi, x_last, s):
+            return time_core(p, c, xi, x_last, s, acts)
+        y, (x_last, s) = chunked(step, x, c.chunk, (x_last, s))
+        return y, x_last, s
 
     x_last0 = torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
     s0 = torch.zeros((b, cfg.n_heads, cfg.head_dim, cfg.head_dim),
                      dtype=torch.float32, device=x.device)
-    y, carry = chunked(step, x, cfg.chunk, (x_last0, s0))
+    y, x_last, s = _heads(run, params, cfg, x, x_last0, s0, ctx or LOCAL)
     if return_state:
-        return y, carry
+        return y, (x_last, s)
     return y
 
 
+def time_step(params, cfg: RWKVCfg, x, x_last, s0, acts: ActBundle,
+              ctx: Optional[ShardCtx] = None):
+    """:func:`time_core` of one decode step; on a mesh on each rank's
+    rows and heads."""
+    def run(p, c, x, x_last, s):
+        return time_core(p, c, x, x_last, s, acts)
+    return _heads(run, params, cfg, x, x_last, s0, ctx or LOCAL)
+
+
+#: the time mix's parameters' specs on a mesh ("tp": the model axis)
+_HEAD_SPECS = {"mu": (None, None), "w_r": (None, "tp", None),
+               "w_k": (None, "tp", None), "w_v": (None, "tp", None),
+               "w_g": (None, "tp", None), "w0": ("tp", None),
+               "w_lora_a": (None, None), "w_lora_b": (None, "tp", None),
+               "u_bonus": ("tp", None), "ln_x": ("tp", None),
+               "w_o": ("tp", None, None)}
+
+
+def _heads(run, params, cfg: RWKVCfg, x, x_last, s, ctx: ShardCtx):
+    """``run(params, cfg, x, x_last, s) -> (y, x_last, s)``; on a mesh on
+    each rank's batch rows and heads (as ``shard_map`` would run it: the
+    recurrence is per head), ``y`` a pending sum over "model" (the output
+    projection's rows are split over it)."""
+    if ctx.mesh is None:
+        return run(params, cfg, x, x_last, s)
+    from ..distributed.collectives import axis_size
+    from ..distributed.sharding import local_call
+    mesh, bs, tp = ctx.mesh, ctx.batch_spec, ctx.tp_axis
+    lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads
+                               // axis_size(mesh, tp))
+    names = sorted(_HEAD_SPECS)
+
+    def fn(x, x_last, s, *ps):
+        p = dict(zip(names, ps))
+        p["ln_x"] = {"scale": p["ln_x"]}
+        return run(p, lcfg, x, x_last, s)
+
+    ins = [(x, (bs, None, None)), (x_last, (bs, None, None)),
+           (s, (bs, tp, None, None))]
+    ins += [(params["ln_x"]["scale"] if k == "ln_x" else params[k],
+             tuple(tp if a == "tp" else a for a in _HEAD_SPECS[k]))
+            for k in names]
+    return local_call(
+        mesh, fn, ins, [(bs, None, None), (bs, None, None),
+                        (bs, tp, None, None)],
+        shape=[tuple(x.shape), tuple(x_last.shape), tuple(s.shape)],
+        partial=[(tp,), (), ()])
+
+
 def rwkv_channel_mix(params: dict, cfg: RWKVCfg, x: torch.Tensor,
-                     acts: ActBundle, x_last: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     acts: ActBundle, x_last: Optional[torch.Tensor] = None,
+                     ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    ctx = ctx or LOCAL
     xs = _shift(x, x_last)
     mu = params["mu"]
     xk, xr = _lerp(x, xs, mu[0]), _lerp(x, xs, mu[1])
     k = torch.einsum("btd,df->btf", xk, params["w_k"])
     k = torch.square(torch.relu(k))                     # relu^2: polynomial
+    k = shard_hint(k, ctx, ctx.batch_spec, None, ctx.tp_axis)
     kv = torch.einsum("btf,fd->btd", k, params["w_v"])
     return acts.sigmoid(torch.einsum("btd,de->bte", xr, params["w_r"])) * kv
 

@@ -26,8 +26,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..kernels.local import no_storage
+from ..roofline import op_costs
 from .activations import ActBundle
-from .common import P
+from .common import LOCAL, P, ShardCtx, shard_hint, tp_matmul
 from .scan import associative_scan
 
 __all__ = ["SSMCfg", "ssm_params", "ssm_mixer", "ssm_decode_step",
@@ -69,11 +71,20 @@ def chunked(step, x: torch.Tensor, chunk: int, carry: tuple):
     along time (axis 1), in order: (y of the whole sequence, final carry).
     The chunk is the reference's: ``min(chunk, T)``, lowered until it
     divides T (a prime T above ``chunk`` gives chunks of 1).  Under
-    autograd each chunk is recomputed in the backward."""
+    autograd each chunk is recomputed in the backward.
+
+    On a tensor without data (the dry run), chunk 0 runs, then chunk 1
+    with its counts, forward and backward, taken for the remaining chunks
+    (``op_costs.scaled``, ``op_costs.scale_nodes``): from chunk 1 on every
+    chunk runs the same ops at the same shapes and dtypes, and a fake
+    tensor's chunks differ in nothing else.  Only the sums of the chunks'
+    gradients into one parameter are counted once, not once a chunk."""
     t = x.shape[1]
     c = min(chunk, t)
     while t % c:
         c -= 1
+    if t // c > 2 and no_storage(x):
+        return _chunked_once(step, x, c, t // c, carry)
     ys = []
     for j in range(t // c):
         xc = x[:, j * c:(j + 1) * c]
@@ -82,6 +93,24 @@ def chunked(step, x: torch.Tensor, chunk: int, carry: tuple):
         else:
             y, *carry = step(xc, *carry)
         ys.append(y)
+    return torch.cat(ys, dim=1), tuple(carry)
+
+
+def _run_chunk(step, xc, carry):
+    if torch.is_grad_enabled():
+        return checkpoint(step, xc, *carry, use_reentrant=False)
+    return step(xc, *carry)
+
+
+def _chunked_once(step, x, c: int, n: int, carry: tuple):
+    """:func:`chunked` on a tensor without data: chunks 0 and 1 run, chunk
+    1 counted n - 1 times."""
+    y0, *carry = _run_chunk(step, x[:, :c], carry)
+    mark = op_costs.node_mark()
+    with op_costs.scaled(n - 1):
+        y1, *carry = _run_chunk(step, x[:, c:2 * c], carry)
+    op_costs.scale_nodes([y1, *carry], mark, n - 1)
+    ys = [y0, y1] + [torch.empty_like(y1) for _ in range(n - 2)]
     return torch.cat(ys, dim=1), tuple(carry)
 
 
@@ -111,8 +140,10 @@ def _combine(e1, e2):
 
 
 def _ssm_inner(params, cfg: SSMCfg, xz: torch.Tensor, conv_state, h0,
-               acts: ActBundle):
-    """Shared body: xz = x @ w_in; returns (y, new conv state, final h)."""
+               acts: ActBundle, reduce=None):
+    """Shared body: xz = x @ w_in; returns (y, new conv state, final h).
+    ``reduce``: the sum over the ranks that split the channels (on a
+    mesh), taken of the x projection, whose contraction runs over them."""
     di = cfg.d_inner
     xs, z = xz[..., :di], xz[..., di:]
     new_conv = _cat_promoted([conv_state, xs], 1)[:, -(cfg.d_conv - 1):]
@@ -120,6 +151,8 @@ def _ssm_inner(params, cfg: SSMCfg, xz: torch.Tensor, conv_state, h0,
                            conv_state))
 
     proj = torch.einsum("btd,dr->btr", xc, params["w_x"])
+    if reduce is not None:
+        proj = reduce(proj)
     r, n = cfg.dt_rank, cfg.d_state
     dt_low = proj[..., :r]
     bmat = proj[..., r:r + n]                      # (B, T, N)
@@ -143,25 +176,79 @@ def _ssm_inner(params, cfg: SSMCfg, xz: torch.Tensor, conv_state, h0,
 
 
 def ssm_mixer(params: dict, cfg: SSMCfg, x: torch.Tensor, acts: ActBundle,
-              return_state: bool = False):
+              return_state: bool = False, ctx: Optional[ShardCtx] = None):
     """Full-sequence mixer (training and prefill).  With ``return_state``
     also the final carry {"conv": (B, K-1, di), "h": (B, di, N) float32},
     which prefill packs into the decode cache."""
+    ctx = ctx or LOCAL
     b = x.shape[0]
-    xz = torch.einsum("btd,de->bte", x, params["w_in"])
+    xz = _in_proj(x, params, ctx)
+    xz = shard_hint(xz, ctx, ctx.batch_spec, None, ctx.tp_axis)
 
-    def step(xz_c, conv_s, h):
-        return _ssm_inner(params, cfg, xz_c, conv_s, h, acts)
+    def run(p, c, xz, conv_s, h, reduce=None):
+        def step(xz_c, conv_s, h):
+            return _ssm_inner(p, c, xz_c, conv_s, h, acts, reduce)
+        y, (conv_f, h_f) = chunked(step, xz, c.chunk, (conv_s, h))
+        return y, conv_f, h_f
 
     conv0 = torch.zeros((b, cfg.d_conv - 1, cfg.d_inner), dtype=xz.dtype,
                         device=x.device)
     h0 = torch.zeros((b, cfg.d_inner, cfg.d_state), dtype=torch.float32,
                      device=x.device)
-    y, (conv_f, h_f) = chunked(step, xz, cfg.chunk, (conv0, h0))
-    out = torch.einsum("bte,ed->btd", y, params["w_out"])
+    y, conv_f, h_f = _channels(run, params, cfg, xz, conv0, h0, ctx)
+    out = _out_proj(y, params, ctx)
     if return_state:
         return out, {"conv": conv_f, "h": h_f}
     return out
+
+
+def _in_proj(x, params, ctx: ShardCtx) -> torch.Tensor:
+    if ctx.mesh is None:
+        return torch.einsum("btd,de->bte", x, params["w_in"])
+    return tp_matmul(x, params["w_in"], ctx)
+
+
+def _out_proj(y, params, ctx: ShardCtx) -> torch.Tensor:
+    if ctx.mesh is None:
+        return torch.einsum("bte,ed->btd", y, params["w_out"])
+    return tp_matmul(y, params["w_out"], ctx, row=True)
+
+
+#: the channel-split parameters' specs on a mesh ("tp": the model axis)
+_CHANNEL_SPECS = {"conv_w": (None, "tp"), "conv_b": ("tp",),
+                  "w_x": ("tp", None), "w_dt": (None, "tp"),
+                  "dt_bias": ("tp",), "a_log": ("tp", None),
+                  "d_skip": ("tp",)}
+
+
+def _channels(run, params, cfg: SSMCfg, xz, conv_s, h, ctx: ShardCtx):
+    """``run(params, cfg, xz, conv, h, reduce) -> (y, conv, h)``; on a
+    mesh on each rank's batch rows and its channels of ``d_inner`` (as
+    ``shard_map`` would run the mixer: the scan is per channel), the x
+    projection summed over the ranks that split them."""
+    if ctx.mesh is None:
+        return run(params, cfg, xz, conv_s, h)
+    from ..distributed.collectives import all_reduce, axis_size
+    from ..distributed.sharding import local_call
+    mesh, bs, tp = ctx.mesh, ctx.batch_spec, ctx.tp_axis
+    di = cfg.d_inner
+    lcfg = dataclasses.replace(cfg, d_inner=di // axis_size(mesh, tp))
+    names = sorted(_CHANNEL_SPECS)
+
+    def fn(xs, z, conv_s, h, *ps):
+        return run(dict(params, **dict(zip(names, ps))), lcfg,
+                   torch.cat([xs, z], dim=-1), conv_s, h,
+                   lambda t: all_reduce(t, mesh, tp))
+
+    chan = (bs, None, tp)
+    ins = [(xz[..., :di], chan), (xz[..., di:], chan), (conv_s, chan),
+           (h, (bs, tp, None))]
+    ins += [(params[k], tuple(tp if a == "tp" else a
+                              for a in _CHANNEL_SPECS[k])) for k in names]
+    b, t = xz.shape[:2]
+    return local_call(mesh, fn, ins, [chan, chan, (bs, tp, None)],
+                      shape=[(b, t, di), tuple(conv_s.shape),
+                             tuple(h.shape)])
 
 
 def init_ssm_state(batch: int, cfg: SSMCfg, dtype=torch.bfloat16,
@@ -176,10 +263,16 @@ def init_ssm_state(batch: int, cfg: SSMCfg, dtype=torch.bfloat16,
 
 
 def ssm_decode_step(params: dict, cfg: SSMCfg, x: torch.Tensor, state: dict,
-                    acts: ActBundle) -> Tuple[torch.Tensor, dict]:
+                    acts: ActBundle, ctx: Optional[ShardCtx] = None
+                    ) -> Tuple[torch.Tensor, dict]:
     """x: (B, 1, D) -> ((B, 1, D), the new state in the state's dtypes)."""
-    xz = torch.einsum("btd,de->bte", x, params["w_in"])
-    y, conv_s, h = _ssm_inner(params, cfg, xz, state["conv"], state["h"],
-                              acts)
-    out = torch.einsum("bte,ed->btd", y, params["w_out"])
+    ctx = ctx or LOCAL
+    xz = _in_proj(x, params, ctx)
+
+    def run(p, c, xz, conv_s, h, reduce=None):
+        return _ssm_inner(p, c, xz, conv_s, h, acts, reduce)
+
+    y, conv_s, h = _channels(run, params, cfg, xz, state["conv"],
+                             state["h"], ctx)
+    out = _out_proj(y, params, ctx)
     return out, {"conv": conv_s.to(state["conv"].dtype), "h": h}

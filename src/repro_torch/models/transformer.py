@@ -50,21 +50,22 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
+from ..kernels.local import is_dtensor
 from ..tree import map_trees
 from .activations import ActBundle
 from .attention import (AttnCfg, attn_params, attention,
                         cross_attention_cached, decode_attention,
                         init_kv_cache)
-from .common import P, ShardCtx, map_tree
+from .common import LOCAL, P, ShardCtx, map_tree, on_mesh, shard_hint
 from .config import ModelCfg, StageCfg
 from .layers import (cross_entropy_chunked, embed_lookup, layernorm,
                      layernorm_params, lm_head_logits, mean_last, rmsnorm,
                      rmsnorm_params)
 from .mlp import gated_mlp, gated_mlp_params, mlp, mlp_params
-from .moe import MoECfg, moe_block, moe_params, shard_experts
+from .moe import MoECfg, moe_block, moe_params
 from .rwkv import (RWKVCfg, init_rwkv_state, rwkv_channel_mix,
                    rwkv_channel_params, rwkv_time_mix, rwkv_time_params,
-                   time_core)
+                   time_step)
 from .ssm import (SSMCfg, init_ssm_state, ssm_decode_step, ssm_mixer,
                   ssm_params)
 
@@ -232,19 +233,33 @@ def prepare_params(params: dict, cfg: ModelCfg, device=None) -> dict:
 
 
 def shard_params(params: dict, cfg: ModelCfg, ctx: ShardCtx) -> dict:
-    """Prepared params with every MoE layer's expert weights as DTensors
-    on ``ctx.mesh`` (``moe.shard_experts``): each rank keeps its own
-    shard.  The other leaves stay replicated: the dense layers run on
-    every rank."""
+    """Prepared params with every leaf a DTensor on ``ctx.mesh``, placed by
+    ``param_shardings`` under the "serve" profile's rules: each rank keeps
+    its own shard, taken without communication from the global tensors,
+    which every rank holds.  A stacked leaf's per-layer views take its
+    spec without the "layers" dim."""
     if ctx.mesh is None:
         return params
-    mcfg = _moe_cfg(cfg)
-    out = dict(params)
-    out["stages"] = {
-        _stage_key(i, st): [
-            dict(p, moe=shard_experts(p["moe"], mcfg, ctx)) if st.moe else p
-            for p in params["stages"][_stage_key(i, st)]]
-        for i, st in enumerate(cfg.stages)}
+    from ..distributed.sharding import make_rules, spec_tree, to_dtensor
+    mesh = ctx.mesh
+    specs = spec_tree(param_specs(cfg), mesh, make_rules("serve", mesh))
+
+    def put(t, spec):
+        return to_dtensor(t, mesh, spec)
+
+    def layers(views, stacked):
+        return [map_trees(lambda t, s: put(t, s[1:]), v, stacked)
+                for v in views]
+
+    out = {k: map_trees(put, v, specs[k]) for k, v in params.items()
+           if k not in ("stages", "encoder")}
+    out["stages"] = {k: layers(v, specs["stages"][k])
+                     for k, v in params["stages"].items()}
+    if "encoder" in params:
+        enc, es = params["encoder"], specs["encoder"]
+        out["encoder"] = {k: (layers(v, es[k]) if k == "stack"
+                              else map_trees(put, v, es[k]))
+                          for k, v in enc.items()}
     return out
 
 
@@ -266,13 +281,13 @@ def _ffn(cfg: ModelCfg, st: StageCfg, p: dict, x: torch.Tensor,
          acts: ActBundle, ctx: Optional[ShardCtx] = None):
     """The block's second half: (y, MoE aux loss or None).  The encoder's
     and the cross decoder's MLP is the plain one with gelu, whatever
-    ``cfg.gate``, as in the reference.  ``ctx``: the mesh the MoE block
-    shards its experts over (None: one process)."""
+    ``cfg.gate``, as in the reference.  ``ctx``: the mesh the layers
+    shard over (None: one process)."""
     if st.moe:
         return moe_block(p["moe"], x, _moe_cfg(cfg), acts, ctx)
     if st.kind in ("enc", "xdec"):
-        return mlp(p["mlp"], x, acts, gate="gelu"), None
-    return gated_mlp(p["mlp"], x, acts, gate=cfg.gate), None
+        return mlp(p["mlp"], x, acts, gate="gelu", ctx=ctx), None
+    return gated_mlp(p["mlp"], x, acts, gate=cfg.gate, ctx=ctx), None
 
 
 def _layer(cfg, st, acts, positions, h, p, enc_out=None, ctx=None):
@@ -284,19 +299,19 @@ def _layer(cfg, st, acts, positions, h, p, enc_out=None, ctx=None):
     if st.kind == "rwkv":
         rcfg = _rwkv_cfg(cfg)
         y, (tm_last, s) = rwkv_time_mix(p["tm"], rcfg, hn, acts,
-                                        return_state=True)
+                                        return_state=True, ctx=ctx)
         h = h + y
         hn2 = _norm(cfg, h, p["ln2"])
-        h = h + rwkv_channel_mix(p["cm"], rcfg, hn2, acts)
+        h = h + rwkv_channel_mix(p["cm"], rcfg, hn2, acts, ctx=ctx)
         return h, {"rwkv": {"tm_last": tm_last, "cm_last": hn2[:, -1:],
                             "s": s}}, None
     a, kv = attention(p["attn"], _attn_cfg(cfg, st, st.kind != "enc"), hn,
                       acts, positions=positions, impl=cfg.attn_impl,
-                      return_kv=True)
+                      return_kv=True, ctx=ctx)
     state = {"kv": kv}
     if st.kind == "hyb":
         s, state["ssm"] = ssm_mixer(p["ssm"], _ssm_cfg(cfg), hn, acts,
-                                    return_state=True)
+                                    return_state=True, ctx=ctx)
         h = h + 0.5 * (a + s)
     else:
         h = h + a
@@ -304,14 +319,14 @@ def _layer(cfg, st, acts, positions, h, p, enc_out=None, ctx=None):
         c, (state["xk"], state["xv"]) = attention(
             p["xattn"], _attn_cfg(cfg, st, False),
             _norm(cfg, h, p["lnx"]), acts, x_kv=enc_out,
-            impl=cfg.attn_impl, return_kv=True)
+            impl=cfg.attn_impl, return_kv=True, ctx=ctx)
         h = h + c
     y, aux = _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts, ctx)
     return h + y, state, aux
 
 
 def _encode(cfg: ModelCfg, enc: dict, layers, enc_feats: torch.Tensor,
-            acts: ActBundle, layer_fn=None) -> torch.Tensor:
+            acts: ActBundle, layer_fn=None, ctx=None) -> torch.Tensor:
     """The encoder on frame embeddings (B, S, D) in the compute dtype:
     each frame standardised (the mean, then the mean of the centred
     squares, as ``jnp.mean`` takes them), the learned positions added,
@@ -324,7 +339,7 @@ def _encode(cfg: ModelCfg, enc: dict, layers, enc_feats: torch.Tensor,
     h = (enc_feats - mu) * torch.rsqrt(var + 1e-6)
     h = h + enc["pos"][None, :enc_feats.shape[1]]
     st = _enc_stage(cfg)
-    fn = functools.partial(_train_layer, cfg, st, acts, None, None)
+    fn = functools.partial(_train_layer, cfg, st, acts, None, None, ctx=ctx)
     if layer_fn is not None:
         fn = layer_fn(fn)
     for p in layers:
@@ -333,18 +348,19 @@ def _encode(cfg: ModelCfg, enc: dict, layers, enc_feats: torch.Tensor,
 
 
 def _embed_inputs(params: dict, cfg: ModelCfg, batch: dict,
-                  acts: ActBundle, layer_fn=None):
+                  acts: ActBundle, layer_fn=None, ctx=None):
     """(h (B, T', D), the encoder's output or None): the token embeddings
     after the vision prefix, and the encoder (its stack a list of
     per-layer params) run on ``enc_feats``."""
-    h = embed_lookup(params["embed"], batch["tokens"])
+    h = embed_lookup(params["embed"], batch["tokens"], ctx)
     if cfg.vision_tokens:
         h = torch.cat([batch["vision_embeds"].to(h.dtype), h], dim=1)
     enc_out = None
     if cfg.enc_layers:
         enc = params["encoder"]
         enc_out = _encode(cfg, enc, enc["stack"],
-                          batch["enc_feats"].to(h.dtype), acts, layer_fn)
+                          batch["enc_feats"].to(h.dtype), acts, layer_fn,
+                          ctx)
     return h, enc_out
 
 
@@ -375,7 +391,8 @@ def _pack_state(state: dict, positions, eff: int, dtype) -> dict:
 
 def _prefill_hidden(params, cfg, batch, acts, cache_len, cache_dtype,
                     ctx=None):
-    h, enc_out = _embed_inputs(params, cfg, batch, acts)
+    ctx = ctx or LOCAL
+    h, enc_out = _embed_inputs(params, cfg, batch, acts, ctx=ctx)
     b, t, _ = h.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=h.device).expand(b, t)
@@ -385,6 +402,7 @@ def _prefill_hidden(params, cfg, batch, acts, cache_len, cache_dtype,
     for i, st in enumerate(cfg.stages):
         key = _stage_key(i, st)
         packed = []
+        h = shard_hint(h, ctx, ctx.batch_spec, None, None)
         for p in params["stages"][key]:
             h, state, _ = _layer(cfg, st, acts, positions, h, p, enc_out,
                                  ctx)
@@ -434,6 +452,8 @@ def _pack_ring(k, v, positions, eff: int, dtype) -> dict:
     kk, vv = k[:, -keep:], v[:, -keep:]
     pp = positions[:, -keep:]
     slots = (pp[0] % eff).long()            # identical across batch
+    if is_dtensor(k):
+        return _pack_ring_placed(kk, vv, pp, slots, eff, dtype)
     kc = torch.zeros((b, eff) + tuple(k.shape[2:]), dtype=dtype,
                      device=k.device)
     vc = torch.zeros((b, eff) + tuple(v.shape[2:]), dtype=dtype,
@@ -445,6 +465,25 @@ def _pack_ring(k, v, positions, eff: int, dtype) -> dict:
     return {"k": kc, "v": vc, "pos": pc}
 
 
+def _pack_ring_placed(kk, vv, pp, slots, eff: int, dtype) -> dict:
+    """:func:`_pack_ring` on DTensors, out of place (a DTensor has no
+    in-place row write across placements): the kept positions are 0..keep-1
+    then padding when the prompt is shorter than the ring, else a
+    permutation of the ring's slots."""
+    keep = kk.shape[1]
+    if keep < eff:
+        def pad(x, fill, dt):
+            tail = torch.full((x.shape[0], eff - keep) + tuple(x.shape[2:]),
+                              fill, dtype=dt, device=x.device)
+            return torch.cat([x.to(dt), tail], dim=1)
+        return {"k": pad(kk, 0, dtype), "v": pad(vv, 0, dtype),
+                "pos": pad(pp, -1, torch.int32)}
+    order = torch.argsort(slots)
+    return {"k": kk.index_select(1, order).to(dtype),
+            "v": vv.index_select(1, order).to(dtype),
+            "pos": pp.index_select(1, order).to(torch.int32)}
+
+
 def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
             acts: ActBundle, cache_dtype=torch.bfloat16,
             last_idx: Optional[torch.Tensor] = None,
@@ -454,14 +493,25 @@ def prefill(params: dict, cfg: ModelCfg, batch: dict, cache_len: int,
     logits, decode cache).  ``batch`` as :func:`forward_hidden` takes it.
     ``last_idx`` (B,) picks each row's last real position in the whole
     sequence (the vision prefix included) when prompts are right-padded to
-    a shared length.  ``ctx``: the mesh of the sharded MoE block."""
-    h, cache = _prefill_hidden(params, cfg, batch, acts, cache_len,
-                               cache_dtype, ctx)
-    if last_idx is None:
-        last = h[:, -1]
-    else:
-        last = h[torch.arange(h.shape[0], device=h.device), last_idx.long()]
-    return lm_head_logits(last, _head(params)), cache
+    a shared length.  ``ctx``: a mesh (the params, batch and cache
+    DTensors), or None."""
+    with on_mesh(ctx):
+        h, cache = _prefill_hidden(params, cfg, batch, acts, cache_len,
+                                   cache_dtype, ctx)
+        if last_idx is None:
+            last = h[:, -1]
+        elif ctx is None or ctx.mesh is None:
+            last = h[torch.arange(h.shape[0], device=h.device),
+                     last_idx.long()]
+        else:
+            from ..distributed.sharding import local_call
+            bs = ctx.batch_spec
+            last = local_call(
+                ctx.mesh, lambda x, i: x[torch.arange(
+                    x.shape[0], device=x.device), i.long()],
+                [(h, (bs, None, None)), (last_idx, (bs,))], (bs, None),
+                shape=(h.shape[0], h.shape[-1]))
+        return lm_head_logits(last, _head(params), ctx), cache
 
 
 def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h,
@@ -471,22 +521,23 @@ def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h,
     hn = _norm(cfg, h, p["ln1"])
     if st.kind == "rwkv":
         rcfg, c = _rwkv_cfg(cfg), cache["rwkv"]
-        y, tm_last, s = time_core(p["tm"], rcfg, hn, c["tm_last"][j],
-                                  c["s"][j], acts)
+        y, tm_last, s = time_step(p["tm"], rcfg, hn, c["tm_last"][j],
+                                  c["s"][j], acts, ctx)
         h = h + y
         hn2 = _norm(cfg, h, p["ln2"])
         h = h + rwkv_channel_mix(p["cm"], rcfg, hn2, acts,
-                                 x_last=c["cm_last"][j])
+                                 x_last=c["cm_last"][j], ctx=ctx)
         for name, new in (("tm_last", tm_last), ("cm_last", hn2), ("s", s)):
             c[name][j].copy_(new)
         return h
     layer_kv = {n: cache["kv"][n][j] for n in ("k", "v", "pos")}
     a, _ = decode_attention(p["attn"], _attn_cfg(cfg, st), hn, layer_kv,
-                            pos, acts)
+                            pos, acts, ctx=ctx)
     if st.kind == "hyb":
         c = cache["ssm"]
         s, new = ssm_decode_step(p["ssm"], _ssm_cfg(cfg), hn,
-                                 {n: c[n][j] for n in ("conv", "h")}, acts)
+                                 {n: c[n][j] for n in ("conv", "h")}, acts,
+                                 ctx)
         for name in ("conv", "h"):
             c[name][j].copy_(new[name])
         h = h + 0.5 * (a + s)
@@ -495,7 +546,7 @@ def _decode_layer(cfg, st, acts, p, cache: dict, j: int, pos, h,
     if st.kind == "xdec":
         h = h + cross_attention_cached(
             p["xattn"], _attn_cfg(cfg, st, False), _norm(cfg, h, p["lnx"]),
-            cache["xk"][j], cache["xv"][j], acts)
+            cache["xk"][j], cache["xv"][j], acts, ctx=ctx)
     return h + _ffn(cfg, st, p, _norm(cfg, h, p["ln2"]), acts, ctx)[0]
 
 
@@ -504,16 +555,17 @@ def decode_step(params: dict, cfg: ModelCfg, cache: dict,
                 ctx: Optional[ShardCtx] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """One token for every sequence: tokens (B, 1), pos (B,) -> logits
-    (B, V); the cache is updated in place and returned.  ``ctx``: the mesh
-    of the sharded MoE block."""
-    h = embed_lookup(params["embed"], tokens)
-    for i, st in enumerate(cfg.stages):
-        key = _stage_key(i, st)
-        for j, p in enumerate(params["stages"][key]):
-            h = _decode_layer(cfg, st, acts, p, cache[key], j, pos, h,
-                              ctx)
-    h = _norm(cfg, h, params["ln_f"])
-    return lm_head_logits(h, _head(params))[:, 0], cache
+    (B, V); the cache is updated in place and returned.  ``ctx``: a mesh
+    (the params, inputs and cache DTensors), or None."""
+    with on_mesh(ctx):
+        h = embed_lookup(params["embed"], tokens, ctx)
+        for i, st in enumerate(cfg.stages):
+            key = _stage_key(i, st)
+            for j, p in enumerate(params["stages"][key]):
+                h = _decode_layer(cfg, st, acts, p, cache[key], j, pos, h,
+                                  ctx)
+        h = _norm(cfg, h, params["ln_f"])
+        return lm_head_logits(h, _head(params), ctx)[:, 0], cache
 
 
 # ---------------------------------------------------------------- training
@@ -542,8 +594,8 @@ def _remat(fn, remat: str):
     raise ValueError(f"unknown remat {remat!r}")
 
 
-def _train_layer(cfg, st, acts, positions, enc_out, h, p):
-    h, _, aux = _layer(cfg, st, acts, positions, h, p, enc_out)
+def _train_layer(cfg, st, acts, positions, enc_out, h, p, ctx=None):
+    h, _, aux = _layer(cfg, st, acts, positions, h, p, enc_out, ctx)
     return h, aux
 
 
@@ -553,13 +605,20 @@ def _unstack(tree: dict, n: int) -> list:
     return [map_tree(lambda u, j=j: u[j], parts) for j in range(n)]
 
 
-def loss_fn(params: dict, cfg: ModelCfg, batch: dict, acts: ActBundle
+def loss_fn(params: dict, cfg: ModelCfg, batch: dict, acts: ActBundle,
+            ctx: Optional[ShardCtx] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross entropy of ``batch`` ({"tokens", "labels"
     (B, T) int, optional "loss_mask", and the extras
     :func:`forward_hidden` takes}) under the raw (float32 master)
     ``params``: (loss, {"nll", "aux", "denom"}), differentiable in the
-    params.  The vision prefix's positions take no loss."""
+    params.  The vision prefix's positions take no loss.  ``ctx``: a mesh
+    (the params and batch DTensors), or None."""
+    with on_mesh(ctx):
+        return _loss(params, cfg, batch, acts, ctx or LOCAL)
+
+
+def _loss(params, cfg, batch, acts, ctx):
     _check_ported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     p = map_tree(lambda t: t.to(dt) if t.is_floating_point() else t, params)
@@ -567,14 +626,15 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict, acts: ActBundle
         p["encoder"]["stack"] = _unstack(p["encoder"]["stack"],
                                          cfg.enc_layers)
     remat = functools.partial(_remat, remat=cfg.remat)
-    h, enc_out = _embed_inputs(p, cfg, batch, acts, remat)
+    h, enc_out = _embed_inputs(p, cfg, batch, acts, remat, ctx)
     b, t, _ = h.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=h.device).expand(b, t)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, st in enumerate(cfg.stages):
         layer = remat(functools.partial(_train_layer, cfg, st, acts,
-                                        positions, enc_out))
+                                        positions, enc_out, ctx=ctx))
+        h = shard_hint(h, ctx, ctx.batch_spec, None, None)
         for lp in _unstack(p["stages"][_stage_key(i, st)], st.n_layers):
             h, a = layer(h, lp)
             if a is not None:
@@ -582,5 +642,5 @@ def loss_fn(params: dict, cfg: ModelCfg, batch: dict, acts: ActBundle
     h = _norm(cfg, h, p["ln_f"])[:, cfg.vision_tokens:]
     nll, denom = cross_entropy_chunked(h, _head(p), batch["labels"],
                                        mask=batch.get("loss_mask"),
-                                       num_chunks=cfg.ce_chunks)
+                                       num_chunks=cfg.ce_chunks, ctx=ctx)
     return nll + aux, {"nll": nll, "aux": aux, "denom": denom}

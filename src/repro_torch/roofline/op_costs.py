@@ -28,25 +28,54 @@ every layer is counted where it runs and no loop trip count enters.
     adds its bytes to ``bytes`` and its elementwise operations to
     ``kernel_ops`` (not to the matrix FLOPs).
 
-A mode entered above DTensor sees the global ops of DTensor arguments; the
-sharded MoE block computes on local tensors, so its counts are one rank's.
+A count is one rank's.  The mode passes every op on a ``DTensor`` on to
+DTensor (``NotImplemented``), which runs it as local ops and collectives
+on the rank's shards: those are what it counts.  DTensor's sharding
+propagation also runs ops, at the global shapes, on fake tensors of a fake
+mode of its own: an op on a fake tensor is counted only when the tensor
+belongs to the counter's ``fake_mode`` (the dry run's), so those never
+are.
+
+With ``where=True`` it also keeps ``rows``: bytes and calls by (kind,
+where), ``kind`` the aten op, the kernel or the collective (under the
+reference's names) and ``where`` the function of the port that ran it;
+``python -m repro_torch.analysis --hlo`` ranks them.
+
+Inside ``with scaled(n):`` every count is taken n times: a loop whose
+trips run the same ops at the same shapes on tensors without data (the
+dry run's recurrent chunks, ``models/ssm.py::chunked``) runs one trip
+there, as the reference's cost analysis scales a loop's body by its trip
+count.  ``scale_nodes`` does the same for that trip's autograd nodes, so
+that its backward (and a checkpoint's recompute) is counted n times too.
+
+``peak_bytes`` is the high-water mark of the live bytes of the results it
+counted (each released when its tensor is: a weak reference a result),
+the eager counterpart of a compiler's temporary bytes.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import weakref
 from typing import Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-__all__ = ["OpCosts", "report_kernel", "counting"]
+__all__ = ["OpCosts", "report_kernel", "counting", "counting_fakes",
+           "node_mark",
+           "scale_nodes", "scaled"]
 
 aten = torch.ops.aten
 
 #: the counters in force, innermost last
 _ACTIVE: List["OpCosts"] = []
+#: the trip count that every count is taken times (``scaled``)
+_SCALE = [1]
+#: autograd node (by sequence number) -> the times its backward counts
+_NODE_SCALE: Dict[int, int] = {}
 
 _MATMULS = {aten.mm, aten.addmm, aten.bmm, aten.baddbmm}
 # views the schema may not mark as aliasing, and ops that move no data
@@ -56,6 +85,8 @@ _ZERO = {aten.empty, aten.empty_like, aten.empty_strided, aten.new_empty,
          aten.expand, aten.slice, aten.select, aten.unsqueeze, aten.squeeze,
          aten.as_strided, aten.view, aten.resize_, aten.set_,
          aten.record_stream}
+_ALLOC = {aten.empty, aten.empty_like, aten.empty_strided, aten.new_empty,
+          aten.new_empty_strided}
 # in-place ops whose destination is written without being read
 _WRITE_ONLY = {aten.copy_, aten.fill_, aten.zero_, aten.normal_,
                aten.uniform_, aten.random_, aten.exponential_,
@@ -69,6 +100,79 @@ _ACCUMULATE = {aten.index_add_, aten.index_reduce_, aten.scatter_add_,
 # ops that read only the rows their index names
 _GATHERS = {aten.embedding, aten.index_select, aten.gather, aten.index,
             aten.take}
+
+
+def _caller() -> str:
+    """The innermost function of the port's model, train or serve code on
+    the stack, as ``file.py:function`` (past the kernels, the activation
+    bundle, the hints and the placement helpers)."""
+    import sys
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename.replace("\\", "/")
+        if "/repro_torch/" in name and not any(
+                k in name for k in _PASS_THROUGH):
+            return f"{name.rsplit('/', 1)[-1]}:{f.f_code.co_name}"
+        f = f.f_back
+    return ""
+
+
+_PASS_THROUGH = ("/roofline/", "/kernels/", "/distributed/",
+                 "/models/activations.py", "/models/common.py")
+
+
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+@contextlib.contextmanager
+def scaled(n: int):
+    """Within the block every count is taken ``n`` times (nested blocks
+    multiply)."""
+    _SCALE.append(_SCALE[-1] * n)
+    try:
+        yield
+    finally:
+        _SCALE.pop()
+
+
+def _scale() -> int:
+    n = _SCALE[-1]
+    if _NODE_SCALE:
+        node = torch._C._current_autograd_node()
+        if node is not None:
+            n *= _NODE_SCALE.get(node._sequence_nr(), 1)
+    return n
+
+
+def node_mark() -> int:
+    """The sequence number the next autograd node will get."""
+    return torch._C._autograd._get_sequence_nr()
+
+
+def scale_nodes(outputs, mark: int, n: int) -> None:
+    """Count ``n`` times the backward of every autograd node made since
+    ``mark`` (``node_mark``) on the way to ``outputs`` (a trip run once for
+    ``n``, ``scaled``)."""
+    todo = [t.grad_fn for t in outputs
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+    seen = set()
+    while todo:
+        node = todo.pop()
+        if node is None or type(node).__name__ == "AccumulateGrad":
+            continue
+        nr = node._sequence_nr()
+        if nr < mark or nr in seen:
+            continue
+        seen.add(nr)
+        _NODE_SCALE[nr] = n
+        todo.extend(f for f, _ in node.next_functions)
+
+
+def counting_fakes() -> bool:
+    """Whether a counter of fake tensors (the dry run's) is in force."""
+    return any(c.fake_mode is not None for c in _ACTIVE)
 
 
 def counting() -> bool:
@@ -121,10 +225,18 @@ class OpCosts(TorchDispatchMode):
     ``kernel_ops`` by kernel ({"int32", "float32"}), ``kernels`` (every
     reported launch: kernel, shape, bytes, operations and what else
     entered the formula) and ``op_bytes`` (bytes by op, to see where they
-    go)."""
+    go).  ``fake_mode``: the fake mode whose tensors are counted (None:
+    no fake tensor is)."""
 
-    def __init__(self):
+    def __init__(self, fake_mode=None, where: bool = False):
         super().__init__()
+        self.fake_mode = fake_mode
+        self.where = where
+        #: (collective?, kind, where) -> [bytes, calls]
+        self.rows: Dict[tuple, list] = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._seen: "weakref.WeakSet" = weakref.WeakSet()
         self.flops = 0
         self.bytes = 0
         self.coll_bytes: Dict[str, int] = collections.Counter()
@@ -143,17 +255,25 @@ class OpCosts(TorchDispatchMode):
             _ACTIVE.remove(self)
 
     def _kernel(self, name, shape, work, info) -> None:
-        nbytes, int_ops, fp_ops = work
+        n = _scale()
+        nbytes, int_ops, fp_ops = (n * w for w in work)
         self.bytes += nbytes
         self.op_bytes[name] += nbytes
+        self._row(False, name, nbytes)
         ops = self.kernel_ops.setdefault(name, {"int32": 0, "float32": 0})
         ops["int32"] += int_ops
         ops["float32"] += fp_ops
-        self.kernels.append(dict(kernel=name, shape=shape, bytes=nbytes,
-                                 int_ops=int_ops, fp_ops=fp_ops, **info))
+        self.kernels.extend(
+            dict(kernel=name, shape=shape, bytes=nbytes // n,
+                 int_ops=int_ops // n, fp_ops=fp_ops // n, **info)
+            for _ in range(n))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, _dtensor()) for t in types):
+            return NotImplemented
+        if func.namespace == "prim" or self._foreign(args, kwargs):
+            return func(*args, **kwargs)
         if func.overloadpacket not in _MATMULS:
             # a composite op (matmul, einsum, linear, reshape: they reach a
             # mode whole under inference_mode) is counted as the ops it
@@ -169,20 +289,49 @@ class OpCosts(TorchDispatchMode):
         self._count(func, args, kwargs, out)
         return out
 
+    def _foreign(self, args, kwargs) -> bool:
+        """Whether a tensor of ``args`` or ``kwargs`` is a fake tensor of
+        another fake mode than the counter's (DTensor's sharding
+        propagation)."""
+        from torch._subclasses.fake_tensor import FakeTensor
+        return any(isinstance(t, FakeTensor) and t.fake_mode
+                   is not self.fake_mode
+                   for t in _tensors([args, kwargs]))
+
+    def _track(self, out) -> None:
+        """Count ``out`` 's new results as live until they are freed."""
+        for t in _tensors(out):
+            if t in self._seen:
+                continue
+            self._seen.add(t)
+            n = t.numel() * t.element_size()
+            self.live_bytes += n
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            weakref.finalize(t, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live_bytes -= n
+
     def _count(self, func, args, kwargs, out) -> None:
+        if self._foreign(out, None):
+            return          # a factory op of another fake mode
         packet = func.overloadpacket
         if func.namespace in ("c10d", "_c10d_functional"):
             kind = _coll_kind(packet.__name__)
             if kind is not None:
                 # c10d's ops work in place on their first argument
-                self.coll_bytes[kind] += _nbytes(
-                    args[0] if func.namespace == "c10d" else out)
+                n = _nbytes(args[0] if func.namespace == "c10d" else out) \
+                    * _scale()
+                self.coll_bytes[kind] += n
+                self._row(True, kind, n)
             return
         if packet in _MATMULS:
             from torch.utils.flop_counter import flop_registry
             self.flops += flop_registry[packet](*args, **kwargs,
-                                                out_val=out)
+                                                out_val=out) * _scale()
         if func.is_view or packet in _ZERO:
+            if packet in _ALLOC:
+                self._track(out)
             return
         named = {}
         for i, a in enumerate(func._schema.arguments):
@@ -200,6 +349,7 @@ class OpCosts(TorchDispatchMode):
         elif not dest:
             nbytes = (sum(_read_bytes(t) for t in _tensors(list(
                 named.values()))) + _nbytes(out))
+            self._track(out)
         elif packet in _ROWS:
             nbytes = self._row_bytes(packet, named)
         else:
@@ -208,8 +358,17 @@ class OpCosts(TorchDispatchMode):
                                          and k == "self")]
             nbytes = (sum(_read_bytes(t) for t in _tensors(srcs))
                       + _nbytes([named[k] for k in dest if k in named]))
+        nbytes *= _scale()
         self.bytes += nbytes
         self.op_bytes[str(packet.__name__)] += nbytes
+        self._row(False, str(packet.__name__), nbytes)
+
+    def _row(self, coll: bool, kind: str, nbytes: int) -> None:
+        if not self.where:
+            return
+        row = self.rows.setdefault((coll, kind, _caller()), [0, 0])
+        row[0] += nbytes
+        row[1] += _scale()
 
     @staticmethod
     def _row_bytes(packet, named) -> int:

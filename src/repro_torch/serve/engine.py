@@ -32,11 +32,16 @@ sequences free their slot.
   seeded with it, so the coalesced engine is token-identical to the serial
   (``coalesce=False``) one.
 
-* **Sharded experts** — given ``ctx`` (``distributed.make_ctx`` of a
+* **On a mesh** — given ``ctx`` (``distributed.make_ctx`` of a
   ``DeviceMesh``), every rank of the mesh runs an engine on the same
-  parameters and requests: the dense layers replicated, each MoE layer's
-  experts as DTensors holding the rank's shard (``shard_params``), their
-  collectives over the mesh's process groups (NCCL on the card).
+  parameters and requests.  Every parameter is a DTensor holding the
+  rank's shard (``shard_params``, the "serve" rules), the cache is placed
+  by ``cache_shardings`` (batch over the dp axes, heads over "model"),
+  the dense layers run as DTensor ops between the reference's hints and
+  the MoE layers compute on local shards with their own collectives, all
+  over the mesh's process groups (NCCL on the card).  A slot write lands
+  on the rank that holds the slot's rows; the logits are gathered whole
+  before sampling, so every rank samples the same tokens.
 
 The PPA activation tables come from the shipped JSON (``repro_torch.
 tables``), or, given ``table_store=``, resolve through that
@@ -61,7 +66,8 @@ from ..models import (ModelCfg, decode_step, init_cache, make_acts, prefill,
                       prepare_params)
 from ..models.common import ShardCtx
 from ..models.transformer import RECURRENT_KINDS, ring_len, shard_params
-from ..tree import leaves_with_path
+from ..kernels.local import is_dtensor
+from ..tree import leaves_with_path, map_trees
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -94,6 +100,41 @@ class Request:
     t_submit: Optional[float] = None   # perf_counter at submit()
     t_first: Optional[float] = None    # first token emitted (admission)
     t_done: Optional[float] = None     # last token emitted (or shed/reap)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank (logits before sampling);
+    a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _insert_rows(full, slots: Sequence[int], new, rows: Sequence[int]
+                 ) -> None:
+    """``full[:, slots] = new[:, rows]`` on a DTensor cache leaf (L, B,
+    ...): ``new`` is gathered whole on its batch dim, cut as ``full`` is
+    on the others, and each rank writes the slots whose rows it holds into
+    its local shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, pls = full.device_mesh, full.placements
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = new.redistribute(mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+        for p in pls]).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, mesh, pls)
+    lo, n = offset[1], shape[1]
+    mine = [(s - lo, r) for s, r in zip(slots, rows) if lo <= s < lo + n]
+    if not mine:
+        return
+    loc = full.to_local()
+    dev = loc.device
+    dst_i = torch.as_tensor([s for s, _ in mine], device=dev)
+    src_i = torch.as_tensor([r for _, r in mine], device=src.device)
+    loc[:, dst_i] = src[:, src_i].to(loc.dtype)
 
 
 class ServeEngine:
@@ -129,7 +170,8 @@ class ServeEngine:
                               store=table_store)
         self.n_slots = n_slots
         self.cache_len = cache_len
-        self.cache = init_cache(cfg, n_slots, cache_len, device=self.device)
+        self.cache = self._place_cache(
+            init_cache(cfg, n_slots, cache_len, device=self.device))
         self.pos = np.zeros((n_slots,), np.int32)
         self.cur_tok = np.zeros((n_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
@@ -152,6 +194,18 @@ class ServeEngine:
         # pads must never enter a ring window: a padded prompt longer than
         # the shortest ring would evict real tokens in their favour
         self._min_eff = min(ring_len(st, cache_len) for st in cfg.stages)
+
+    def _place_cache(self, cache: dict) -> dict:
+        """The cache as DTensors on the mesh (``cache_shardings``); as it
+        is off-mesh."""
+        mesh = self.ctx.mesh
+        if mesh is None:
+            return cache
+        from ..distributed.sharding import cache_specs, to_dtensor
+        specs = cache_specs(mesh, cache, self.ctx.batch_sharded,
+                            self.cfg.kv_shard)
+        return map_trees(lambda t, spec: to_dtensor(t, mesh, spec), cache,
+                         specs)
 
     # ----------------------------------------------------------- admission
     def submit(self, req: Request) -> bool:
@@ -266,7 +320,7 @@ class ServeEngine:
                                      last, device=self.device),
                                  ctx=self.ctx)
         toks_out = self._sample_rows(
-            logits, [req.temperature for _, req in members],
+            _whole(logits), [req.temperature for _, req in members],
             [seeds.get(id(req)) for _, req in members])
         self._insert_cache([s for s, _ in members], cache1, range(g))
         for j, (slot, req) in enumerate(members):
@@ -292,7 +346,10 @@ class ServeEngine:
                              device=self.device)
         new = dict(leaves_with_path(cache1))
         for path, full in leaves_with_path(self.cache):
-            full[:, sl] = new[path][:, rw].to(full.dtype)
+            if is_dtensor(full):
+                _insert_rows(full, list(slots), new[path], list(rows))
+            else:
+                full[:, sl] = new[path][:, rw].to(full.dtype)
 
     # ------------------------------------------------------------ sampling
     def _sample_rows(self, logits: torch.Tensor, temps: Sequence[float],
@@ -325,10 +382,20 @@ class ServeEngine:
         return out
 
     # ---------------------------------------------------------------- step
-    @torch.inference_mode()
+    def _no_grad(self):
+        """``inference_mode``, or ``no_grad`` on a mesh: a DTensor view of
+        a parameter made outside inference mode cannot be taken inside
+        it."""
+        return (torch.inference_mode() if self.ctx.mesh is None
+                else torch.no_grad())
+
     def step(self) -> int:
         """Admit pending requests, decode one token for every active slot.
         Returns the number of active sequences stepped."""
+        with self._no_grad():
+            return self._step()
+
+    def _step(self) -> int:
         failpoint("serve.decode.step")
         if self._has_deadlines:
             self._reap_deadlines()
@@ -340,6 +407,7 @@ class ServeEngine:
         pos = torch.as_tensor(self.pos, device=self.device)
         logits, self.cache = decode_step(self.params, self.cfg, self.cache,
                                          toks, pos, self.acts, self.ctx)
+        logits = _whole(logits)
         temps: List[float] = []
         seeds: List[Optional[int]] = []
         for i in active:
@@ -365,13 +433,16 @@ class ServeEngine:
         return len(active)
 
     # -------------------------------------------------------------- warmup
-    @torch.inference_mode()
     def warmup(self, prompt_lens: Sequence[int] = (), *, batch: int = 1,
                decode: bool = True) -> int:
         """Run one prefill per bucketed prompt length (zero extras) and one
         decode step on scratch state (the engine's cache and queue are
         untouched), so first-use costs (kernel builds, library handles) are
         paid here.  Returns the number of runs."""
+        with self._no_grad():
+            return self._warmup(prompt_lens, batch, decode)
+
+    def _warmup(self, prompt_lens, batch, decode) -> int:
         cfg, n = self.cfg, 0
         for lp in prompt_lens:
             blen = self._bucket_len(lp)
@@ -390,8 +461,8 @@ class ServeEngine:
                     last_idx=last, ctx=self.ctx)
             n += 1
         if decode:
-            scratch = init_cache(self.cfg, self.n_slots, self.cache_len,
-                                 device=self.device)
+            scratch = self._place_cache(init_cache(
+                self.cfg, self.n_slots, self.cache_len, device=self.device))
             decode_step(self.params, self.cfg, scratch,
                         torch.zeros((self.n_slots, 1), dtype=torch.int32,
                                     device=self.device),

@@ -96,11 +96,10 @@ def opt_init(cfg: OptCfg, params):
                     "v_s": zs.clone()}
         if cfg.kind == "adafactor":
             if _factored(cfg, p):
-                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                          device=p.device),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                          dtype=torch.float32,
-                                          device=p.device)}
+                # zeros of z's row and column shapes (on a mesh, DTensors
+                # placed as z is)
+                return {"vr": torch.zeros_like(z[..., 0]),
+                        "vc": torch.zeros_like(z[..., 0, :])}
             return {"v": z}
         raise ValueError(cfg.kind)
 

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from ..models import ActBundle, ModelCfg, loss_fn, make_acts
+from ..models.common import on_mesh
 from ..tree import leaves, map_tree, map_trees
 from .optimizer import OptCfg, clip_grads, global_norm, opt_init, opt_update
 from .schedule import ScheduleCfg, lr_at
@@ -39,12 +40,15 @@ def train_init(tcfg: TrainCfg, params):
                                 device=opt["count"].device), "opt": opt}
 
 
-def loss_and_grads(cfg: ModelCfg, acts: ActBundle, params, batch):
+def loss_and_grads(cfg: ModelCfg, acts: ActBundle, params, batch,
+                   ctx=None):
     """(loss, gradient tree) of :func:`~repro_torch.models.loss_fn` at
-    ``params``, whose leaves it leaves untouched."""
+    ``params``, whose leaves it leaves untouched.  ``ctx``: a mesh (the
+    params and batch DTensors), or None."""
     leaf = map_tree(lambda p: p.detach().requires_grad_(True), params)
-    loss, _ = loss_fn(leaf, cfg, batch, acts)
-    it = iter(torch.autograd.grad(loss, leaves(leaf)))
+    loss, _ = loss_fn(leaf, cfg, batch, acts, ctx)
+    with on_mesh(ctx):
+        it = iter(torch.autograd.grad(loss, leaves(leaf)))
     return loss.detach(), map_tree(lambda _: next(it), leaf)
 
 

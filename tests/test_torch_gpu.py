@@ -758,3 +758,86 @@ def test_sharded_moe_over_nccl_on_two_cards(tmp_path):
             np.testing.assert_allclose(y1, y0, atol=MOE_ATOL, rtol=MOE_RTOL)
             np.testing.assert_allclose(a1, a0, rtol=1e-6)
             assert launches >= 1, mode
+
+
+def _nccl_tp_rank(rank, init_file, out_dir):
+    """The smoke internlm2 (``ppa``) on one card, then tensor-parallel on a
+    (1, 2) NCCL mesh: prefill logits and 4 greedy decode steps of each."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import make_ctx
+    from repro_torch.models import (decode_step, init_params, make_acts,
+                                    param_specs, prefill, prepare_params)
+    from repro_torch.models.transformer import shard_params
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2, device_id=dev,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_smoke_config("internlm2-1.8b").replace(act_impl="ppa")
+        params = prepare_params(init_params(param_specs(cfg), 0,
+                                            device=dev), cfg)
+        acts = make_acts("ppa", device=dev)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 12)).astype(np.int32)).to(dev)
+        res = {}
+        for name, ctx in (("local", None), ("tp", make_ctx(mesh))):
+            p = params if ctx is None else shard_params(params, cfg, ctx)
+            n0 = fused.counts["launches"]
+            with torch.no_grad():
+                logits, cache = prefill(p, cfg, {"tokens": tokens}, 32, acts,
+                                        ctx=ctx)
+                out = [logits]
+                pos = torch.full((4,), 12, dtype=torch.int32, device=dev)
+                for _ in range(4):
+                    tok = out[-1].argmax(-1).to(torch.int32)[:, None]
+                    if ctx is not None:
+                        tok = tok.full_tensor()
+                    logits, cache = decode_step(p, cfg, cache, tok, pos,
+                                                acts, ctx)
+                    out.append(logits)
+                    pos = pos + 1
+            res[name] = ([(o.full_tensor() if ctx is not None else o)
+                          .cpu().numpy() for o in out],
+                         fused.counts["launches"] - n0)
+        np.save(f"{out_dir}/tp{rank}.npy", np.array(res, dtype=object),
+                allow_pickle=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_internlm2_over_nccl_on_two_cards(tmp_path):
+    """A 2-layer internlm2 at the smoke width, every parameter a DTensor
+    on a (1, 2) NCCL mesh over 2 cards: its prefill and decode logits
+    within the CPU test's tolerance of the one-card run
+    (tests/test_torch_shard_hint.py::LOGIT_ATOL), its greedy tokens equal,
+    the fused kernel launched on each card."""
+    import time
+    import torch.multiprocessing as mp
+    from test_torch_shard_hint import LOGIT_ATOL
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ctx = mp.start_processes(_nccl_tp_rank, args=(
+        str(tmp_path / "init"), str(tmp_path)), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("the NCCL ranks did not finish in 300 s")
+    for rank in range(2):
+        res = np.load(tmp_path / f"tp{rank}.npy", allow_pickle=True).item()
+        (local, _), (tp, launches) = res["local"], res["tp"]
+        assert launches >= 1
+        for a, b in zip(tp, local):
+            np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
+            np.testing.assert_allclose(a, b, rtol=0, atol=LOGIT_ATOL)
