@@ -146,6 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--order", type=int, default=1)
     ap.add_argument("--quantizer", default="fqa")
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="--hlo: the (2, 16, 16) mesh")
     ap.add_argument("rest", nargs="*",
                     help="paths (--lint) or arch/shape args (--hlo)")
     args = ap.parse_args(argv)
@@ -161,7 +163,8 @@ def main(argv=None) -> int:
         return cmd_diff(args.smoke, args.store, args.json)
     if args.hlo:
         from .hlo import main as hlo_main
-        return hlo_main(args.rest, json_mode=args.json)
+        pod = ["--multi-pod"] if args.multi_pod else []
+        return hlo_main(args.rest + pod, json_mode=args.json)
     return 2
 
 

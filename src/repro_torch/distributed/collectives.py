@@ -10,10 +10,10 @@ order of a tiled gather over the axes as given (the first one major).
 
 Every call runs its collectives, also on a group of one rank, where they
 are the identity: so a run on one card still goes through NCCL.  On a
-tensor that needs a gradient they run as autograd-aware functional
-collectives, whose backward is the reference's transpose under
-``shard_map(check_vma=False)``: a gather's is a reduce-scatter, a sum's a
-sum.
+tensor that needs a gradient they are differentiable, with the
+reference's transpose under ``shard_map(check_vma=False)`` as backward:
+a gather's is a reduce-scatter (the functional collective's), a sum's a
+sum (:class:`_Sum`).
 ``counts`` counts the collectives by kind, as the kernels count their
 launches.
 """
@@ -37,6 +37,14 @@ Axes = Union[str, Sequence[str]]
 # ``all_gather_single`` replaces ``all_gather_into_tensor`` in newer torch
 _GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+
+
+def _gather_autograd():
+    """The differentiable tiled gather on dim 0: ``all_gather_single_autograd``
+    (its older name, deprecated where the new one exists, before that)."""
+    from torch.distributed import _functional_collectives as fc
+    return (getattr(fc, "all_gather_single_autograd", None)
+            or fc.all_gather_tensor_autograd)
 
 
 def reset_counts() -> None:
@@ -76,9 +84,7 @@ def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0
         src = x.contiguous()
         # the blocks concatenated along dim 0 (the form every backend takes)
         if _needs_grad(src):
-            from torch.distributed._functional_collectives import (
-                all_gather_tensor_autograd)
-            out = all_gather_tensor_autograd(src, 0, group)
+            out = _gather_autograd()(src, 0, group)
         else:
             out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                               dtype=src.dtype, device=src.device)
@@ -100,8 +106,7 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     x = x.contiguous()
     for a in _axes(axes):
         if _needs_grad(x):
-            from torch.distributed.nn.functional import all_reduce as ar
-            x = ar(x, group=mesh.get_group(a))
+            x = _Sum.apply(x, mesh.get_group(a))
         else:
             dist.all_reduce(x, group=mesh.get_group(a))
         counts["all-reduce"] += 1
@@ -110,6 +115,24 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
 
 def _needs_grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over one process group of a tensor that needs a gradient:
+    a copy summed in place; its gradient is the sum of the output's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 def ppermute(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -38,7 +38,7 @@ from ..tree import map_tree
 __all__ = ["make_rules", "param_shardings", "batch_shardings",
            "cache_shardings", "make_ctx", "dp_axes_of", "placements",
            "local_shard", "distribute", "to_dtensor", "wrap_local",
-           "spec_tree", "cache_specs", "local_at", "local_call"]
+           "spec_tree", "cache_specs", "local_at", "local_call", "spec_of"]
 
 Spec = Tuple[object, ...]
 
@@ -124,6 +124,19 @@ def placements(spec: Sequence, mesh) -> tuple:
         for i in idx:
             out[i] = Shard(d)
     return tuple(out)
+
+
+def spec_of(t) -> Spec:
+    """The spec of DTensor ``t``, one entry a dim: the mesh axes that
+    split it, in mesh order (the inverse of :func:`placements`)."""
+    spec = [()] * t.dim()
+    for name, pl in zip(axis_names(t.device_mesh), t.placements):
+        if isinstance(pl, Shard):
+            spec[pl.dim % t.dim()] += (name,)
+        elif not isinstance(pl, Replicate):
+            raise ValueError(f"placements {t.placements} hold a pending "
+                             "reduction")
+    return tuple(spec)
 
 
 def _ways(mesh, part) -> int:

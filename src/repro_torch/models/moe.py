@@ -23,11 +23,13 @@ Distribution (``ctx.mesh``, a ``DeviceMesh``; the reference's
     its (E_loc, f_loc) partial, and one sum over all axes rebuilds the
     outputs: no weight moves.
 
-The block takes global tensors, as the reference's: ``x`` the same on
-every rank (the dense layers run replicated), the expert weights either
-global plain tensors or DTensors holding each rank's shard
-(:func:`shard_experts`).  Each rank runs :func:`_moe_body` on its shard
-and batch rows, and the rows are gathered back over dp.  With
+The block takes global tensors, as the reference's: ``x`` a DTensor
+from the tensor-parallel dense layers (or a plain tensor, the same on
+every rank), the expert weights either global plain tensors or DTensors
+holding each rank's shard (:func:`shard_experts`).  Each rank runs
+:func:`_moe_body` on its shard and batch rows, as shard_map's in_specs
+cut them; a DTensor ``x`` gets its result back at shard_map's out_specs,
+a plain one the rows gathered back over dp.  With
 ``ctx.mesh`` None the same dispatch core runs locally (E_loc = E, no
 collectives); on a mesh of one rank every collective is the identity and
 the output equals the local path's exactly.

@@ -150,10 +150,11 @@ class ServeEngine:
         ``TableStore`` the PPA tables resolve through (None: the shipped
         JSON); the tuned config persisted next to it, if any, is activated
         first and kept as ``tuned``.  ``act_backend`` overrides
-        ``cfg.act_backend``.  ``ctx``: a ``ShardCtx`` whose mesh the MoE
-        layers shard their experts over (``make_ctx``); every rank of the
-        mesh runs an engine on the same params and requests, the dense
-        layers replicated (None: one process)."""
+        ``cfg.act_backend``.  ``ctx``: a ``ShardCtx`` whose mesh the model
+        is sharded over (``make_ctx``): the dense layers tensor-parallel
+        (``tp_matmul``), the MoE layers' experts as DTensor shards; every
+        rank of the mesh runs an engine on the same params and requests
+        (None: one process)."""
         self.device = resolve_device(device)
         if act_backend is not None and act_backend != cfg.act_backend:
             cfg = dataclasses.replace(cfg, act_backend=act_backend)

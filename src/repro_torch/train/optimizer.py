@@ -22,6 +22,7 @@ from typing import Tuple
 
 import torch
 
+from ..kernels.local import is_dtensor
 from ..tree import leaves, map_tree, map_trees
 
 __all__ = ["OptCfg", "opt_init", "opt_update", "global_norm", "clip_grads"]
@@ -81,10 +82,81 @@ def _factored(cfg: OptCfg, p: torch.Tensor) -> bool:
             and p.shape[-2] >= cfg.factored_min)
 
 
+# ------------------------------------------------- adafactor on a mesh
+def _moment(p, dim: int):
+    """Float32 zeros of ``p``'s shape without ``dim``, placed as ``p``
+    without it (replicated over the mesh axes that split ``dim``), made
+    from zeros of the local shard's shape with no collective."""
+    from ..distributed.sharding import spec_of, wrap_local
+    d = dim % p.dim()
+    loc = p.to_local()
+    spec = list(spec_of(p))
+    del spec[d]
+    z = torch.zeros(loc.shape[:d] + loc.shape[d + 1:], dtype=torch.float32,
+                    device=loc.device)
+    return wrap_local(z, p.device_mesh, tuple(spec),
+                      p.shape[:d] + p.shape[d + 1:])
+
+
+def _means(p=None):
+    """The means adafactor takes of leaf ``p``: ``mean(x, dim=None,
+    keepdim=False, leaf_dim=None)`` of ``x`` laid out as ``p`` (``dim``
+    None: all of it; ``leaf_dim``: the dim of ``p`` that ``x`` 's ``dim``
+    holds, default ``dim``).  Off a mesh (``p`` None) ``torch.mean``.  On
+    a mesh, of the rank's shard: the local sum, one all-reduce a mesh axis
+    that splits the dim, divided by the dim's global length."""
+    if p is None:
+        def mean(x, dim=None, keepdim=False, leaf_dim=None):
+            return (torch.mean(x) if dim is None
+                    else torch.mean(x, dim=dim, keepdim=keepdim))
+        return mean
+    from ..distributed.collectives import all_reduce
+    from ..distributed.sharding import spec_of
+    mesh, spec = p.device_mesh, spec_of(p)
+    split = [a for a in mesh.mesh_dim_names if any(a in s for s in spec)]
+
+    def mean(x, dim=None, keepdim=False, leaf_dim=None):
+        if dim is None:
+            axes, n, s = split, p.numel(), torch.sum(x)
+        else:
+            ld = dim if leaf_dim is None else leaf_dim
+            axes, n = spec[ld], p.shape[ld]
+            s = torch.sum(x, dim=dim, keepdim=keepdim)
+        if axes:
+            s = all_reduce(s, mesh, axes)
+        return s / n
+    return mean
+
+
+def _grad_shard(g, p) -> torch.Tensor:
+    """The rank's shard of gradient ``g`` placed as ``p``.  A pending sum
+    over mesh axes (``Partial``, as a replicated leaf's gradient comes out
+    of the backward) is summed first with one all-reduce an axis, of a copy
+    of the local tensor, so that DTensor splits no dim for a
+    reduce-scatter."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from ..distributed.collectives import all_reduce
+    from ..distributed.sharding import local_at
+    mesh = p.device_mesh
+    if isinstance(g, DTensor):
+        axes = [a for a, pl in zip(mesh.mesh_dim_names, g.placements)
+                if isinstance(pl, Partial) and pl.reduce_op == "sum"]
+        if axes:
+            pls = [Replicate() if a in axes else pl for a, pl in
+                   zip(mesh.mesh_dim_names, g.placements)]
+            g = DTensor.from_local(all_reduce(g.to_local().clone(), mesh,
+                                              axes),
+                                   mesh, pls, run_check=False, shape=g.shape,
+                                   stride=g.stride())
+    return local_at(g, mesh, p.placements)
+
+
 # ----------------------------------------------------------------- init
 @torch.no_grad()
 def opt_init(cfg: OptCfg, params):
     def per_leaf(p):
+        if cfg.kind == "adafactor" and _factored(cfg, p) and is_dtensor(p):
+            return {"vr": _moment(p, -1), "vc": _moment(p, -2)}
         z = torch.zeros_like(p, dtype=torch.float32)
         if cfg.kind == "sgdm":
             return {"m": z}
@@ -96,8 +168,6 @@ def opt_init(cfg: OptCfg, params):
                     "v_s": zs.clone()}
         if cfg.kind == "adafactor":
             if _factored(cfg, p):
-                # zeros of z's row and column shapes (on a mesh, DTensors
-                # placed as z is)
                 return {"vr": torch.zeros_like(z[..., 0]),
                         "vc": torch.zeros_like(z[..., 0, :])}
             return {"v": z}
@@ -111,6 +181,12 @@ def opt_init(cfg: OptCfg, params):
 
 # --------------------------------------------------------------- update
 def _leaf(cfg: OptCfg, g, s: dict, p, lr, cf) -> None:
+    mean, held = _means(), None
+    if cfg.kind == "adafactor" and is_dtensor(p):
+        # the rank's shards; the moments come back placed as they were
+        mean, held = _means(p), s
+        g = _grad_shard(g, p)
+        p, s = p.to_local(), {k: v.to_local() for k, v in s.items()}
     gf = g.to(torch.float32)
     if cfg.kind == "sgdm":
         m = cfg.momentum * s["m"] + gf
@@ -134,11 +210,11 @@ def _leaf(cfg: OptCfg, g, s: dict, p, lr, cf) -> None:
     elif cfg.kind == "adafactor":
         g2 = gf * gf + 1e-30
         if "vr" in s:
-            vr = cfg.b2 * s["vr"] + (1 - cfg.b2) * torch.mean(g2, dim=-1)
-            vc = cfg.b2 * s["vc"] + (1 - cfg.b2) * torch.mean(g2, dim=-2)
+            vr = cfg.b2 * s["vr"] + (1 - cfg.b2) * mean(g2, -1)
+            vc = cfg.b2 * s["vc"] + (1 - cfg.b2) * mean(g2, -2)
             denom = torch.sqrt(
                 vr[..., None] * vc[..., None, :]
-                / torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True)
+                / torch.clamp_min(mean(vr, -1, keepdim=True, leaf_dim=-2)
                                   [..., None], 1e-30))
             upd = gf / torch.clamp_min(denom, cfg.eps)
             new_s = {"vr": vr, "vc": vc}
@@ -147,7 +223,7 @@ def _leaf(cfg: OptCfg, g, s: dict, p, lr, cf) -> None:
             upd = gf / (torch.sqrt(v) + cfg.eps)
             new_s = {"v": v}
         # adafactor-style update clipping (RMS <= 1)
-        rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+        rms = torch.sqrt(mean(torch.square(upd)) + 1e-30)
         upd = upd / torch.clamp_min(rms, 1.0)
     else:
         raise ValueError(cfg.kind)
@@ -155,6 +231,11 @@ def _leaf(cfg: OptCfg, g, s: dict, p, lr, cf) -> None:
     if cfg.weight_decay and p.dim() >= 2:     # no decay on norms/biases
         upd = upd + cfg.weight_decay * p.to(torch.float32)
     p.copy_((p.to(torch.float32) - lr * upd).to(p.dtype))
+    if held is not None:
+        from ..distributed.sharding import spec_of, wrap_local
+        s, new_s = held, {k: wrap_local(v, held[k].device_mesh,
+                                        spec_of(held[k]), held[k].shape)
+                          for k, v in new_s.items()}
     s.update(new_s)
 
 

@@ -19,7 +19,13 @@
   error feedback over 20 steps; ``pipeline_apply`` on 4 stages against the
   reference's sequential loop; a checkpoint saved from a (4, 2) mesh and
   restored onto (2, 4); the smoke moonshot served on a (1, 2) mesh, its
-  greedy tokens equal to the reference engine's.
+  greedy tokens equal to the reference engine's; adafactor on leaves
+  split over none, one, two and three mesh axes of a 2-D and a 3-D mesh,
+  three steps equal to the local update and to the reference's, with no
+  collective in ``opt_init`` and only the statistics' all-reduces in
+  ``opt_update`` (``CommDebugMode`` and a dispatch recorder); the gather
+  and the sum of ``collectives`` on tensors that need a gradient, their
+  gradients the transposes, with no ``FutureWarning``.
 """
 
 import datetime
@@ -49,6 +55,25 @@ MOE_KW = dict(d_model=32, d_ff=16, n_experts=8, top_k=2,
 PP_L, PP_B, PP_T, PP_D, PP_MICRO, PP_STAGES = 8, 8, 4, 16, 4, 4
 EF_RANKS, EF_STEPS = 4, 20
 SERVE_LENS, SERVE_NEW = (5, 7, 3, 6), 6
+#: adafactor on shards: the meshes (8 ranks each) and the leaves, each
+#: (shape, its spec on the 2-D mesh, on the 3-D one): factored and split
+#: over two axes (three on the 3-D mesh, one dim over "pod" and "data"),
+#: factored over one, factored and whole, unfactored over two, a vector.
+#: The unfactored matrix is small: off a mesh too, the port's update of a
+#: (4, 64, 32) leaf is off the reference's by up to 2.4e-7 on a few
+#: parameters near 0, beyond OPT_ATOL (their whole-leaf RMS means summed
+#: in another order), as test_torch_train.py's small leaves are not
+ADA_MESHES = {"2d": ((4, 2), ("data", "model")),
+              "3d": ((2, 2, 2), ("pod", "data", "model"))}
+ADA_LEAVES = {
+    "a": ((4, 256, 512), (None, "data", "model"),
+          (None, ("pod", "data"), "model")),
+    "b": ((256, 128), ("model", None), ("model", None)),
+    "c": ((128, 256), (None, None), (None, None)),
+    "d": ((4, 8, 4), ("data", None, "model"), ("pod", None, "model")),
+    "e": ((256,), ("model",), (("data", "model"),)),
+}
+ADA_STEPS = 3
 ARCH = "moonshot-v1-16b-a3b"
 MODES = ("weight_gather", "token_gather")
 
@@ -320,7 +345,37 @@ def _reference(tmp_path):
     out.update(serve_params=rparams, serve_prompts=prompts,
                serve_tokens=[list(r.output) for r in reqs])
     out["ckpt_dir"] = str(tmp_path / "ckpt")
+    out.update(_adafactor_reference())
     return out
+
+
+def _adafactor_inputs():
+    rng = np.random.default_rng(7)
+    params = {k: rng.normal(size=shape).astype(np.float32)
+              for k, (shape, _, _) in ADA_LEAVES.items()}
+    grads = [{k: (0.1 * rng.normal(size=shape)).astype(np.float32)
+              for k, (shape, _, _) in ADA_LEAVES.items()}
+             for _ in range(ADA_STEPS)]
+    return params, grads
+
+
+def _adafactor_reference():
+    """The reference's adafactor over ADA_STEPS steps (as
+    ``test_torch_train.py`` runs its four kinds)."""
+    import jax
+    import jax.numpy as jnp
+    import repro.train as RT
+    params, grads = _adafactor_inputs()
+    cfg = RT.OptCfg(kind="adafactor")
+    # copies both ways: jnp.asarray and np.asarray may alias a buffer
+    p = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True), params)
+    st = RT.opt_init(cfg, p)
+    for i, g in enumerate(grads):
+        p, st = RT.opt_update(
+            cfg, jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True), g),
+            st, p, jnp.float32(1e-2 / (i + 1)))
+    return {"ada_params": jax.tree_util.tree_map(np.array, p),
+            "ada_state": jax.tree_util.tree_map(np.array, st["mu"])}
 
 
 def _moe_cases(ref, rank):
@@ -437,6 +492,141 @@ def _serve_case(ref, rank):
     return res
 
 
+def _recorder():
+    """A dispatch mode that keeps (op name, elements of its first tensor)
+    of every c10d collective."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Collectives(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name
+            if name.startswith(("c10d::", "_c10d_functional::")):
+                t = args[0]
+                t = t[0] if isinstance(t, (list, tuple)) else t
+                self.ops.append((name, t.numel()))
+            return func(*args, **(kwargs or {}))
+
+    return Collectives()
+
+
+def _adafactor_case(ref, rank):
+    """Adafactor on DTensor leaves on each mesh of ADA_MESHES against the
+    local update of the same inputs; what it communicates."""
+    import logging
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial
+    from torch.distributed.tensor import _redistribute
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.distributed.sharding import distribute, placements
+    from repro_torch.train import OptCfg, opt_init, opt_update
+
+    class Seq(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.msgs = []
+
+        def emit(self, record):
+            if "sequential" in record.getMessage():
+                self.msgs.append(record.getMessage())
+
+    seq = Seq()
+    logging.getLogger(_redistribute.__name__).addHandler(seq)
+    params, grads = _adafactor_inputs()
+    cfg = OptCfg(kind="adafactor")
+    res = {}
+    for name, (shape, names) in ADA_MESHES.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        col = 1 if len(shape) == 2 else 2
+
+        def place(tree):
+            return {k: distribute(torch.from_numpy(v.copy()), (
+                mesh, placements(ADA_LEAVES[k][col], mesh)))
+                for k, v in tree.items()}
+
+        local = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+        lstate = opt_init(cfg, local)
+        dp = place(params)
+        with CommDebugMode() as init_comms:
+            dstate = opt_init(cfg, dp)
+        # DTensor warns once per mesh and dims; forget what it warned
+        getattr(_redistribute, "_warned_flatten_issues", set()).clear()
+        seq.msgs.clear()
+        gathers, reduced = 0, []
+        for i, g in enumerate(grads):
+            lr = torch.tensor(np.float32(1e-2 / (i + 1)))
+            local, lstate = opt_update(
+                cfg, {k: torch.from_numpy(v) for k, v in g.items()},
+                lstate, local, lr)
+            dg = place(g)
+            with CommDebugMode() as comms, _recorder() as rec:
+                dp, dstate = opt_update(cfg, dg, dstate, dp, lr)
+            gathers += sum(n for op, n in comms.get_comm_counts().items()
+                           if "gather" in str(op))
+            reduced += [n for op, n in rec.ops if "allreduce" in op
+                        or "all_reduce" in op]
+        mom = {k: v for k, v in dstate["mu"].items()}
+        shard_max = max(v.to_local().numel() for m in mom.values()
+                        for key, v in m.items() if key in ("vr", "vc"))
+        res[f"ada_{name}"] = {
+            "init_comms": init_comms.get_total_counts(),
+            "gathers": gathers, "reduced": reduced, "shard_max": shard_max,
+            "partial": any(isinstance(pl, Partial) for m in mom.values()
+                           for v in m.values() for pl in v.placements),
+            "dtensors": all(isinstance(v, DTensor) for m in mom.values()
+                            for v in m.values()),
+            "sequential": list(seq.msgs),
+            "params": {k: v.full_tensor().numpy() for k, v in dp.items()},
+            "state": {k: {n: v.full_tensor().numpy() for n, v in m.items()}
+                      for k, m in mom.items()},
+            "local": {k: v.numpy() for k, v in local.items()},
+            "local_state": {k: {n: v.numpy() for n, v in m.items()}
+                            for k, m in lstate["mu"].items()},
+        }
+    logging.getLogger(_redistribute.__name__).removeHandler(seq)
+    return res
+
+
+def _collective_grad_case(ref, rank):
+    """``all_gather`` and ``all_reduce`` of ``collectives`` on a tensor
+    that needs a gradient, each rank's upstream gradient scaled by its
+    rank + 1: the gather's gradient is the sum of the group's upstream
+    gradients at this rank's block, the sum's the sum of them."""
+    import warnings
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.collectives import all_gather, all_reduce
+
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    w = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(8, 6)).astype(np.float32))
+    x0 = torch.from_numpy(np.random.default_rng(12 + rank).normal(
+        size=(2, 6)).astype(np.float32))
+    res = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        x = x0.clone().requires_grad_(True)
+        y = all_gather(x, mesh, "data", dim=0)
+        (y * w * (rank + 1)).sum().backward()
+        group = dist.get_process_group_ranks(mesh.get_group("data"))
+        i = mesh.get_local_rank("data")
+        want = sum(r + 1 for r in group) * w[2 * i:2 * i + 2]
+        res["grad_gather"] = (x.grad.numpy(), want.numpy(),
+                              y.detach().numpy())
+        x = x0.clone().requires_grad_(True)
+        y = all_reduce(x, mesh, "model")
+        (y * w[:2] * (rank + 1)).sum().backward()
+        group = dist.get_process_group_ranks(mesh.get_group("model"))
+        want = sum(r + 1 for r in group) * w[:2]
+        res["grad_sum"] = (x.grad.numpy(), want.numpy())
+    res["future_warnings"] = [str(c.message) for c in caught
+                              if issubclass(c.category, FutureWarning)]
+    return res
+
+
 def _rank_main(rank, init_file, ref_path, out_dir):
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -449,7 +639,7 @@ def _rank_main(rank, init_file, ref_path, out_dir):
             ref = pickle.load(f)
         res = {}
         for case in (_moe_cases, _ef_case, _pipeline_case, _checkpoint_case,
-                     _serve_case):
+                     _serve_case, _adafactor_case, _collective_grad_case):
             res.update(case(ref, rank))
         with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
@@ -541,3 +731,53 @@ def test_sharded_engine_on_1x2_matches_reference_engine(ranks, mode):
         assert res[f"serve_{mode}"] == ref["serve_tokens"]
         # each rank holds half the experts
         assert res[f"serve_held_{mode}"][0] == cfg.moe_experts // 2
+
+
+@pytest.mark.parametrize("mesh", list(ADA_MESHES))
+def test_sharded_adafactor_matches_local_and_reference(ranks, mesh):
+    """Three steps on shards: the parameters and moments equal the local
+    update's and the reference's within the optimizer's tolerances."""
+    from test_torch_train import OPT_ATOL, OPT_RTOL
+    ref, out = ranks
+    for res in out:
+        r = res[f"ada_{mesh}"]
+        for k, want in ref["ada_params"].items():
+            np.testing.assert_allclose(r["params"][k], r["local"][k],
+                                       rtol=OPT_RTOL, atol=OPT_ATOL,
+                                       err_msg=k)
+            np.testing.assert_allclose(r["params"][k], want, rtol=OPT_RTOL,
+                                       atol=OPT_ATOL, err_msg=k)
+        for k, moments in ref["ada_state"].items():
+            assert set(r["state"][k]) == set(moments), k
+            for n, want in moments.items():
+                np.testing.assert_allclose(r["state"][k][n],
+                                           r["local_state"][k][n],
+                                           rtol=OPT_RTOL, atol=OPT_ATOL)
+                np.testing.assert_allclose(r["state"][k][n], want,
+                                           rtol=OPT_RTOL, atol=OPT_ATOL)
+
+
+@pytest.mark.parametrize("mesh", list(ADA_MESHES))
+def test_sharded_adafactor_reduces_only_statistics(ranks, mesh):
+    """No collective in ``opt_init``; in ``opt_update`` no gather, and no
+    all-reduce larger than a ``vr`` / ``vc`` shard; the moments stored as
+    DTensors with no ``Partial``; no sequential all-reduce of DTensor's."""
+    _, out = ranks
+    for res in out:
+        r = res[f"ada_{mesh}"]
+        assert r["init_comms"] == 0
+        assert r["gathers"] == 0
+        assert r["reduced"] and max(r["reduced"]) <= r["shard_max"]
+        assert r["dtensors"] and not r["partial"]
+        assert r["sequential"] == []
+
+
+def test_collective_gradients_are_the_transposes(ranks):
+    _, out = ranks
+    for res in out:
+        got, want, y = res["grad_gather"]
+        assert y.shape == (8, 6)
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        got, want = res["grad_sum"]
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        assert res["future_warnings"] == []

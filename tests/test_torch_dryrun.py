@@ -313,3 +313,72 @@ def test_report_tables_match_reference_report(records, monkeypatch):
     want, got = outs
     assert want and "### Collective mix (single-pod)" in want
     assert got[:len(want)] == want
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["pod", "multipod"])
+def test_adafactor_step_gathers_no_leaf(fake_group, monkeypatch, multi_pod):
+    """One adafactor train step of the smoke kimi (a layer a stage) on the
+    fake (16, 16) and (2, 16, 16) meshes, every matrix factored
+    (``factored_min`` 16),
+    counted with ``OpCosts(where=True)``: at the optimizer's update and
+    init sites (``_leaf``, ``opt_init`` and their helpers; the gradient
+    clip is outside) no all-gather, no reduce-scatter and no ``cat``, only
+    all-reduces of its statistics and of pending gradient sums; the
+    moments placed with no ``Partial``; no ``FutureWarning`` from the
+    port's collectives."""
+    import dataclasses
+    import warnings
+    from torch.distributed.tensor import Partial
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import OptCfg, train_init
+    from repro_torch.tree import leaves, leaves_with_path
+
+    def one_layer(arch):
+        cfg = get_smoke_config(arch)
+        return cfg.replace(stages=tuple(
+            dataclasses.replace(st, n_layers=1) for st in cfg.stages))
+    monkeypatch.setattr(dryrun, "get_config", one_layer)
+    cell = dryrun.place_cell("kimi-k2-1t-a32b", SHAPES["train_4k"],
+                             make_production_mesh(multi_pod=multi_pod))
+    cell.tcfg = dataclasses.replace(
+        cell.tcfg, opt=OptCfg(kind="adafactor", factored_min=16))
+    params, _, batch = cell.args
+    with cell.mode:
+        tstate = train_init(cell.tcfg, params)
+    mu = tstate["opt"]["mu"]
+    assert any(k.endswith("/vr") for k, _ in leaves_with_path(mu))
+    cell.args = (params, tstate, batch)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        costs, _, _ = dryrun.run_step(cell, where=True)
+    sites = {f"optimizer.py:{f}" for f in (
+        "_leaf", "opt_init", "per_leaf", "mean", "_grad_shard", "_moment")}
+    opt = {(kind, where) for (_, kind, where) in costs.rows
+           if where in sites}
+    assert ("all-reduce", "optimizer.py:mean") in opt
+    assert not [k for k in opt if k[0] in (
+        "all-gather", "reduce-scatter", "cat")], opt
+    assert not any(isinstance(pl, Partial) for t in leaves(mu)
+                   for pl in getattr(t, "placements", ()))
+    assert not [str(c.message) for c in caught
+                if issubclass(c.category, FutureWarning)
+                and c.filename.endswith("collectives.py")]
+
+
+
+@pytest.mark.parametrize("argv", [["--multi-pod", ARCH, "decode_32k"],
+                                  [ARCH, "decode_32k", "--multi-pod"],
+                                  [ARCH, "decode_32k", "--", "--multi-pod"]])
+def test_analysis_cli_takes_multi_pod(monkeypatch, capsys, argv):
+    """``python -m repro_torch.analysis --hlo <arch> <shape> --multi-pod``
+    counts the cell on the (2, 16, 16) mesh, the flag anywhere."""
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.analysis import hlo
+    seen = []
+    monkeypatch.setattr(hlo, "audit_cell", lambda *a: seen.append(a) or (
+        [], []))
+    assert cli.main(["--hlo", "--json", *argv]) == 0
+    assert seen == [(ARCH, "decode_32k", "baseline", True)]
+    assert "(multipod)" in capsys.readouterr().out

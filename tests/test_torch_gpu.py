@@ -841,3 +841,103 @@ def test_tensor_parallel_internlm2_over_nccl_on_two_cards(tmp_path):
         for a, b in zip(tp, local):
             np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1))
             np.testing.assert_allclose(a, b, rtol=0, atol=LOGIT_ATOL)
+
+
+#: adafactor on shards against one card's update: the optimizer parity's
+#: tolerances (tests/test_torch_train.py::OPT_RTOL, OPT_ATOL; that file
+#: imports JAX, which the card's machine has not)
+OPT_RTOL, OPT_ATOL = 2e-6, 1e-8
+#: (shape, spec on the (1, 2) mesh): factored and split on its columns, on
+#: its rows, unfactored, a vector
+NCCL_ADA_LEAVES = {"a": ((4, 256, 512), (None, None, "model")),
+                   "b": ((512, 256), ("model", None)),
+                   "c": ((4, 16, 8), (None, None, "model")),
+                   "e": ((256,), ("model",))}
+
+
+def _nccl_adafactor_rank(rank, init_file, out_dir):
+    """Three adafactor steps of the same leaves on one card and as
+    DTensors on a (1, 2) NCCL mesh; the gathers the sharded steps ran."""
+    import datetime
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.distributed.sharding import distribute, placements
+    from repro_torch.train import OptCfg, opt_init, opt_update
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2, device_id=dev,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1, 2),
+                                mesh_dim_names=("data", "model"))
+        rng = np.random.default_rng(0)
+        params = {k: rng.normal(size=s).astype(np.float32)
+                  for k, (s, _) in NCCL_ADA_LEAVES.items()}
+        grads = [{k: (0.1 * rng.normal(size=s)).astype(np.float32)
+                  for k, (s, _) in NCCL_ADA_LEAVES.items()}
+                 for _ in range(3)]
+
+        def place(tree):
+            return {k: distribute(torch.from_numpy(v).to(dev), (
+                mesh, placements(NCCL_ADA_LEAVES[k][1], mesh)))
+                for k, v in tree.items()}
+
+        cfg = OptCfg(kind="adafactor")
+        local = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+        lstate = opt_init(cfg, local)
+        dp = place(params)
+        dstate = opt_init(cfg, dp)
+        gathers = 0
+        for i, g in enumerate(grads):
+            lr = torch.tensor(np.float32(1e-2 / (i + 1)), device=dev)
+            local, lstate = opt_update(
+                cfg, {k: torch.from_numpy(v).to(dev) for k, v in g.items()},
+                lstate, local, lr)
+            dg = place(g)
+            with CommDebugMode() as comms:
+                dp, dstate = opt_update(cfg, dg, dstate, dp, lr)
+            gathers += sum(n for op, n in comms.get_comm_counts().items()
+                           if "gather" in str(op))
+        res = {"gathers": gathers,
+               "params": {k: (dp[k].full_tensor().cpu().numpy(),
+                              local[k].cpu().numpy()) for k in params},
+               "state": {(k, n): (v.full_tensor().cpu().numpy(),
+                                  lstate["mu"][k][n].cpu().numpy())
+                         for k, m in dstate["mu"].items()
+                         for n, v in m.items()}}
+        np.save(f"{out_dir}/ada{rank}.npy", np.array(res, dtype=object),
+                allow_pickle=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_adafactor_over_nccl_on_two_cards(tmp_path):
+    """Adafactor on leaves split over a (1, 2) NCCL mesh, each card
+    updating its shard and all-reducing only the statistics: three steps
+    equal to one card's update of the whole leaves within the optimizer's
+    tolerances, with no gather in the update."""
+    import time
+    import torch.multiprocessing as mp
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ctx = mp.start_processes(_nccl_adafactor_rank, args=(
+        str(tmp_path / "init"), str(tmp_path)), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("the NCCL ranks did not finish in 300 s")
+    for rank in range(2):
+        res = np.load(tmp_path / f"ada{rank}.npy", allow_pickle=True).item()
+        assert res["gathers"] == 0
+        for key, (got, want) in [*res["params"].items(),
+                                 *res["state"].items()]:
+            np.testing.assert_allclose(got, want, rtol=OPT_RTOL,
+                                       atol=OPT_ATOL, err_msg=str(key))

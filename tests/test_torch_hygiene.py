@@ -89,9 +89,11 @@ def test_no_jax_or_repro_import_in_source(path):
 
 PORT_SCRIPTS = sorted(str(p.relative_to(ROOT))
                       for p in (ROOT / "scripts").glob("torch_*.py"))
+PORT_EXAMPLES = sorted(str(p.relative_to(ROOT))
+                       for p in (ROOT / "examples").glob("torch_*.py"))
 
 
-@pytest.mark.parametrize("path", PORT_SCRIPTS)
+@pytest.mark.parametrize("path", PORT_SCRIPTS + PORT_EXAMPLES)
 def test_no_jax_or_repro_import_in_port_scripts(path):
     text = (ROOT / path).read_text()
     hits = [m.group(0).strip() for m in _FORBIDDEN.finditer(text)]
