@@ -28,15 +28,17 @@ Phases (any failure exits non-zero and prints no result line):
             kernels must have launched at least layers x engine steps times
             and no plain version may have run; the launches are counted by
             input shape (decode and prefill)
-4b. serve_sharded  the serve phase's model and requests through
-            ``ServeEngine(ctx=make_ctx(mesh))`` on a ("data", "model")
-            DeviceMesh of (1, 1) over NCCL: every parameter a DTensor
-            placed by the "serve" rules, the cache by ``cache_shardings``,
-            the dense layers as DTensor ops between the reference's hints
-            (``shard_hint``); the greedy tokens equal the serve phase's
-            exactly, the fused and softmax kernels launch at least layers
-            x steps times, no plain version runs, the hints redistribute
-            at least layers x steps times; decode ms beside serve's
+4b. serve_sharded  the serve phase's model cut to 4 layers at full
+            width, served locally and with the same parameters and
+            requests through ``ServeEngine(ctx=make_ctx(mesh))`` on a
+            ("data", "model") DeviceMesh of (1, 1) over NCCL: every
+            parameter a DTensor placed by the "serve" rules, the cache by
+            ``cache_shardings``, the dense layers as DTensor ops between
+            the reference's hints (``shard_hint``); the greedy tokens
+            equal the local serve's exactly, the fused and softmax kernels
+            launch at least layers x steps times, no plain version runs,
+            the hints redistribute at least layers x steps times; decode
+            ms beside the local serve's
 5. serve_int the same config cut to 2 layers with act_backend="cuda_int";
             the integer kernel must have launched at least layers x engine
             steps times and no plain version may have run
@@ -79,23 +81,25 @@ Phases (any failure exits non-zero and prints no result line):
             tokens/s, peak memory; then the same requests served again
             with the routed expert ids recorded (their tokens equal the
             timed run's; its decode ms is the sharded phase's yardstick)
-11. serve_moe_sharded  serve_moe's parameters (kept, not drawn again)
-            and requests through ``ServeEngine(ctx=make_ctx(mesh))`` on a
-            ("data", "model") DeviceMesh of (1, 1) over an NCCL process
-            group of one rank (a FileStore; no gloo), once with
-            moe_mode="weight_gather" and once "token_gather": the greedy
-            tokens and the routed expert ids of every MoE layer and call
-            equal the local serve_moe run's exactly (each mode's serve
-            records its ids; its decode ms is set beside serve_moe's
-            second serve's, which records them too), every MoE layer of
-            every step all-reduced over "model" and all-gathered over
-            "data" (``distributed.collectives.counts``; one decode step's
-            c10d ops seen under an ``OpCosts`` counter), the fused kernel
+11. serve_moe_sharded  moonshot at full width cut to its dense layer and
+            3 MoE layers (random bf16 weights from seed 0), served locally
+            with the routed expert ids recorded, then with the same
+            parameters and requests through ``ServeEngine(ctx=make_ctx(
+            mesh))`` on a ("data", "model") DeviceMesh of (1, 1) over an
+            NCCL process group of one rank (a FileStore; no gloo), once
+            with moe_mode="weight_gather" and once "token_gather": the
+            greedy tokens and the routed expert ids of every MoE layer and
+            call equal the local serve's exactly (its decode ms is the
+            yardstick), every MoE layer of every step all-reduced over
+            "model" and all-gathered over "data"
+            (``distributed.collectives.counts``; one decode step's c10d
+            ops seen under an ``OpCosts`` counter), the fused kernel
             launched at least layers x steps times, no plain version
 12. roofline  untimed counting passes under ``roofline.OpCosts``: one
             decode step and one prefill group of the serve phase's
             internlm2-1.8b engine, one decode step of serve_moe's moonshot
-            (local, and sharded on the (1, 1) mesh) and the train phase's
+            (and of serve_moe_sharded's 1 + 3-layer cut on the (1, 1)
+            mesh) and the train phase's
             step 0: FLOPs, bytes, collective bytes, the three terms
             against the H100's published peaks (``HW_H100``), the
             bottleneck, model FLOPs and the decode's ideal bytes (active
@@ -154,6 +158,36 @@ Phases (any failure exits non-zero and prints no result line):
             0.02) of (256, 6144): as serve_whisper
 22. parity_vlm  internvl at full width, 2 layers, float32, the vision
             prefix before each prompt: the parity phase's arms and controls
+22b. train_hybrid, train_rwkv, train_whisper, train_moe  training at
+            full width (float32 master weights from seed 0, bf16 compute,
+            act_impl="ppa", cuda_fused, the config's remat "dots", adamw,
+            4 steps): hymba-1.5b, all 32 layers, batch 2 x seq 2048 (its
+            windows of 1024 mask; the softmax backward on the block path
+            at (2, 5, 5, 2048, 2048)); rwkv6-3b, all 32 layers, 4 x 512
+            (the decays through the fused kernel in the chunked scans
+            under checkpoint; no softmax); whisper-medium, 24 + 24 layers,
+            4 x 512 decoder tokens with ``enc_feats`` (4, 1500, 1024)
+            drawn as the serving launcher draws a request's
+            (``train_batch``, through ``make_train_step``; the block path
+            at the encoder's (4, 16, 1, 1500, 1500) and the cross
+            attention's (4, 16, 1, 512, 1500)); moonshot-v1-16b-a3b cut
+            to 2 dense and 2 MoE layers of 64 experts, 4 x 512; the others
+            through ``launch/train.py::run_training``.  Each: every loss
+            and gradient norm finite, no plain version run, per step at
+            least layers x 2 launches of the fused kernel, and at each
+            scores' shape attention layers x 2 of the softmax and
+            attention layers of its backward; step ms, tokens/s, peak
+            memory; step 0 counted under ``OpCosts`` (its roofline, every
+            launch's reported bytes its bound's); then ``path_rows``
+            under the masks the path's attention used
+22c. train_parity_hybrid, _rwkv, _whisper, _moe  the train parity phase
+            on each family at its serving parity's depth (hymba's first
+            two stages of one layer, rwkv 2 layers, whisper 1 + 1,
+            moonshot 1 dense + 1 MoE), float32, its train phase's batch:
+            cuda_int equal to cuda_fused, each within the train parity
+            limits of ref, and each control beyond them: the moved
+            softmax, or on rwkv the decay table's outputs moved by a
+            factor of 1 +- 1e-3 and 1 +- 1e-2 (``DECAY_CONTROLS``)
 23. compile the FQA compiler on the card: the six 16-bit deployment tables
             (``ppa_table_jobs("ppa")``) compiled by ``TorchSearchBackend``
             through ``compile_or_load`` into a fresh store, each equal to
@@ -161,7 +195,10 @@ Phases (any failure exits non-zero and prints no result line):
             backend on the host (one spawned process a table), equal by
             ``table_identity`` with the same candidate evaluations; per
             table both wall times, candidate evaluations a second and the
-            card's dispatches (one host sync each)
+            card's dispatches (one host sync each); the numpy compiles
+            run in the three spawned processes that ``HostCompiles``
+            starts after the build, beside the card's phases, and this
+            phase waits for them
 24. workflow  the paper's hardware-constrained flow (Fig. 7): sigmoid at
             SEG_t 16, order 1 and 2 (8-bit FWLs), on the card's backend
             through one CompilerSession; the winner resolved through a
@@ -176,7 +213,8 @@ Phases (any failure exits non-zero and prints no result line):
             workers on one shared directory: each key compiled once in
             each mode by a spawned worker on the card (pid, backend and
             dispatches logged), every table equal to a serial numpy
-            compile by ``table_identity`` and to the shipped ``*-8.json``;
+            compile (``HostCompiles``, as the compile phase's) by
+            ``table_identity`` and to the shipped ``*-8.json``;
             the tables are then merged into the compile phase's store;
             wall seconds, dispatches, candidate evaluations a second; then
             ``scripts/torch_sweep.py --preset smoke --hosts 2 --host-id
@@ -229,13 +267,13 @@ Phases (any failure exits non-zero and prints no result line):
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
 1 to 4096 scores, and times it.  After each of serve, serve_int, train,
-serve_moe, flash, serve_hybrid, serve_rwkv, serve_whisper and serve_vlm,
-every input shape at which
-that run launched the integer, fused or softmax kernel (the fused kernel's
-by dtype, table and gate too: ``launched_shapes``) is held to the plain
-version and timed beside its bound (``path_rows``), and its row in the
-kernels line carries those launches (``launches_by_path`` adds the
-serve_moe_sharded, tune, serve_store, tenants and chaos runs).  The last two lines are a JSON
+serve_moe, flash, serve_hybrid, serve_rwkv, serve_whisper, serve_vlm and
+the four families' train phases, every input shape at which that run
+launched the integer, fused or softmax kernel or the softmax's backward
+(the fused kernel's by dtype, table and gate too: ``launched_shapes``) is
+held to the plain version and timed beside its bound (``path_rows``), and
+its row in the kernels line carries those launches (``launches_by_path``
+adds the serve_moe_sharded, tune, serve_store, tenants and chaos runs).  The last two lines are a JSON
 object with one entry per kernel, then ``{"ok": true, "device": {...}}``.
 """
 
@@ -642,29 +680,80 @@ def fused_row(torch, fused, tc, x, gate: bool, plain: bool = True):
     return row
 
 
-def softmax_row(torch, gen, dev, softmax_ppa, e2, shape, plain: bool = True):
-    """The softmax kernel on scores of ``shape`` under the attention mask:
-    held to its plain version within SOFTMAX_ATOL, then timed beside its
-    bound; with ``plain``, also the plain version and torch's masked
-    softmax (context: not the same function)."""
+def softmax_row(torch, gen, dev, softmax_ppa, e2, shape, plain: bool = True,
+                masks=None):
+    """The softmax kernel on scores of ``shape`` under each mask of
+    ``masks`` ([(label, where)]; default: the attention mask): held to its
+    plain version within SOFTMAX_ATOL under each, then timed beside its
+    bound under the first; with ``plain``, also the plain version and
+    torch's masked softmax (context: not the same function)."""
     x = torch.randn(shape, generator=gen, device=dev) * 4.0
-    where = attention_mask(torch, dev, shape)
-    err = float((softmax_ppa.softmax_ppa(x, e2, where)
-                 - softmax_ppa.softmax_ppa_plain(x, e2, where)
-                 ).abs().max())
-    if not err <= SOFTMAX_ATOL:
-        raise AssertionError(f"softmax_ppa vs plain at {shape}: {err}")
-    ms, host = time_launch(lambda: softmax_ppa.softmax_ppa(x, e2, where))
+    masks = masks or [("causal", attention_mask(torch, dev, shape))]
+    err = 0.0
+    for label, where in masks:
+        d = float((softmax_ppa.softmax_ppa(x, e2, where)
+                   - softmax_ppa.softmax_ppa_plain(x, e2, where)
+                   ).abs().max())
+        if not d <= SOFTMAX_ATOL:
+            raise AssertionError(f"softmax_ppa vs plain at {shape}, "
+                                 f"{label}: {d}")
+        err = max(err, d)
+    where = masks[0][1]
+    big = x.numel() > 1 << 26
+    ms, host = time_launch(lambda: softmax_ppa.softmax_ppa(x, e2, where),
+                           iters=10 if big else 50)
     b_ms, b_by = softmax_bound(x.numel(), where.numel(), *_table_args(e2))
     row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None, masked=True, max_abs_err=err)
+               bound_by=b_by, library_ms=None, masked=True, max_abs_err=err,
+               masks=[label for label, _ in masks])
     if plain:
         mask = where.expand(x.shape)
         row["plain_ms"] = time_ms(
-            lambda: softmax_ppa.softmax_ppa_plain(x, e2, where), iters=10)
+            lambda: softmax_ppa.softmax_ppa_plain(x, e2, where),
+            iters=3 if big else 10)
         row["context_masked_softmax_ms"], _ = time_launch(
             lambda: torch.softmax(x.masked_fill(~mask, float("-inf")),
-                                  dim=-1))
+                                  dim=-1), iters=10 if big else 50)
+    return row
+
+
+def softmax_bwd_row(torch, gen, dev, softmax_ppa, e2, shape,
+                    plain: bool = True, masks=None):
+    """The softmax backward kernel on scores of ``shape`` and a gradient
+    under each mask of ``masks`` (as ``softmax_row``): held to its plain
+    version within SOFTMAX_BWD_REL x max |g| under each, then timed beside
+    its bound under the first; with ``plain``, also the plain version and
+    torch's softmax backward (context: another function).  No one PyTorch
+    call computes this one."""
+    x = torch.randn(shape, generator=gen, device=dev) * 4.0
+    g = torch.randn(shape, generator=gen, device=dev)
+    masks = masks or [("causal", attention_mask(torch, dev, shape))]
+    err = 0.0
+    for label, where in masks:
+        (d, lim), _ = _bwd_err(torch, softmax_ppa, e2, x, g, where)
+        if not d <= lim:
+            raise AssertionError(f"softmax_ppa_bwd vs plain at {shape}, "
+                                 f"{label}: {d} > {lim}")
+        err = max(err, d)
+    where = masks[0][1]
+    big = x.numel() > 1 << 26
+    ms, host = time_launch(
+        lambda: softmax_ppa.softmax_ppa_bwd(x, g, e2, where),
+        iters=10 if big else 50)
+    b_ms, b_by = softmax_bwd_bound(x.numel(), where.numel(),
+                                   *_table_args(e2))
+    row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, masked=True, max_abs_err=err,
+               masks=[label for label, _ in masks])
+    if plain:
+        row["plain_ms"] = time_ms(
+            lambda: softmax_ppa.softmax_ppa_bwd_plain(x, g, e2, where),
+            iters=3 if big else 10)
+        y = torch.softmax(x.masked_fill(~where.expand(shape),
+                                        float("-inf")), dim=-1)
+        row["context_softmax_backward_ms"], _ = time_launch(
+            lambda: torch.ops.aten._softmax_backward_data(
+                g, y, -1, torch.float32), iters=10 if big else 50)
     return row
 
 
@@ -723,15 +812,17 @@ def launched_shapes():
             "ppa_fused_variants": read_variant_counts()}
 
 
-def path_rows(torch, dev, path, by_shape):
+def path_rows(torch, dev, path, by_shape, masks=None):
     """{kernel: {label: row}} for every input shape at which the run of
-    ``path`` launched the integer, fused and softmax kernels (its
-    ``launched_shapes``), each with its launches there.  A row is
-    ``int_row``, ``fused_row`` or ``softmax_row``: held to the plain
-    version, then timed beside its bound.  The fused kernel's rows follow
-    its variants: the run's dtype, table and gate at each shape, on inputs
-    of the served model's scale, or on ``exp_neg`` the decays' and flash
-    attention's nonnegative inputs (``flash_input``)."""
+    ``path`` launched the integer, fused and softmax kernels and the
+    softmax's backward (its ``launched_shapes``), each with its launches
+    there.  A row is ``int_row``, ``fused_row``, ``softmax_row`` or
+    ``softmax_bwd_row``: held to the plain version, then timed beside its
+    bound.  The fused kernel's rows follow its variants: the run's dtype,
+    table and gate at each shape, on inputs of the served model's scale,
+    or on ``exp_neg`` the decays' and flash attention's nonnegative inputs
+    (``flash_input``).  ``masks(shape)``: the masks the path's attention
+    put on scores of that shape (default: the attention mask)."""
     from repro_torch.kernels import fused, ppa, softmax_ppa
     from repro_torch.kernels.ops import pack_table
     from repro_torch.tables import load_table
@@ -741,7 +832,8 @@ def path_rows(torch, dev, path, by_shape):
     tcs = {n: pack_table(load_table(n, 16), dev)
            for n in ("sigmoid_wide", "exp2_frac")}
     sig, e2 = tcs["sigmoid_wide"], tcs["exp2_frac"]
-    out = {"ppa_int": {}, "ppa_fused": {}, "softmax_ppa": {}}
+    out = {"ppa_int": {}, "ppa_fused": {}, "softmax_ppa": {},
+           "softmax_ppa_bwd": {}}
     for shape, n in sorted(by_shape["ppa_int"].items()):
         row, _ = int_row(torch, gen, dev, ppa, sig, shape)
         out["ppa_int"][f"{path} {shape}"] = dict(row, launches=n)
@@ -757,9 +849,13 @@ def path_rows(torch, dev, path, by_shape):
                         gate)
         label = f"{path} {shape} {dtype} {naf}" + (" gated" if gate else "")
         out["ppa_fused"][label] = dict(row, launches=n)
-    for shape, n in sorted(by_shape["softmax_ppa"].items()):
-        row = softmax_row(torch, gen, dev, softmax_ppa, e2, shape)
-        out["softmax_ppa"][f"{path} {shape}"] = dict(row, launches=n)
+    for name, row_fn in (("softmax_ppa", softmax_row),
+                         ("softmax_ppa_bwd", softmax_bwd_row)):
+        for shape, n in sorted(by_shape[name].items()):
+            row = row_fn(torch, gen, dev, softmax_ppa, e2, shape,
+                         masks=masks and masks(shape))
+            out[name][f"{path} {shape}"] = dict(row, launches=n)
+            _free(torch)
     _free(torch)
     return out
 
@@ -817,38 +913,11 @@ def _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2):
 
 def softmax_bwd_times(torch, dev, gen, softmax_ppa, e2, plain: bool = True):
     """{"train" | "decode": row} for the softmax backward kernel with the
-    attention mask at SOFTMAX_BWD_SHAPES: held to its plain version, then
-    timed beside its bound, as ``kernel_times`` does.  No one PyTorch call
-    computes this function; torch's softmax backward, given as context,
-    is another one."""
-    out = {}
-    for label, shape in SOFTMAX_BWD_SHAPES.items():
-        x = torch.randn(shape, generator=gen, device=dev) * 4.0
-        g = torch.randn(shape, generator=gen, device=dev)
-        where = attention_mask(torch, dev, shape)
-        (err, lim), _ = _bwd_err(torch, softmax_ppa, e2, x, g, where)
-        if not err <= lim:
-            raise AssertionError(f"softmax_ppa_bwd vs plain at {shape}: "
-                                 f"{err} > {lim}")
-        ms, host = time_launch(
-            lambda: softmax_ppa.softmax_ppa_bwd(x, g, e2, where))
-        b_ms, b_by = softmax_bwd_bound(x.numel(), where.numel(),
-                                       e2.num_segments, e2.plan.order,
-                                       e2.plan.round_mults)
-        row = dict(shape=list(shape), ms=ms, host_us=host, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None, masked=True,
-                   max_abs_err=err)
-        if plain:
-            row["plain_ms"] = time_ms(
-                lambda: softmax_ppa.softmax_ppa_bwd_plain(x, g, e2, where),
-                iters=10)
-            y = torch.softmax(x.masked_fill(~where.expand(shape),
-                                            float("-inf")), dim=-1)
-            row["context_softmax_backward_ms"], _ = time_launch(
-                lambda: torch.ops.aten._softmax_backward_data(
-                    g, y, -1, torch.float32))
-        out[label] = row
-    return out
+    attention mask at SOFTMAX_BWD_SHAPES (``softmax_bwd_row``), as
+    ``kernel_times`` does."""
+    return {label: softmax_bwd_row(torch, gen, dev, softmax_ppa, e2, shape,
+                                   plain)
+            for label, shape in SOFTMAX_BWD_SHAPES.items()}
 
 
 def phase_kernels(torch, dev):
@@ -1053,7 +1122,6 @@ def phase_serve(torch, dev, card, store=None):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
     decode = sorted(t for t, adm in steps if adm == 0)
     dec_ms = decode[len(decode) // 2] * 1e3
-    DECODE_MS[tag] = dec_ms
     adm_ms = [t * 1e3 - dec_ms for t, adm in steps if adm > 0]
     tokens = sum(len(r.output) for r in reqs)
     mem = torch.cuda.max_memory_allocated(dev)
@@ -1155,10 +1223,11 @@ def phase_serve_full(torch, dev, card, arch, tag):
     lens = [32, 128, 64, 96, 48, 128, 80, 112][:SERVE_REQUESTS]
     params = None
     if arch == MOE_ARCH:
-        # kept for serve_moe_sharded and the roofline (52.9 GiB: built once)
+        # kept for the second serve, which records the routes (52.9 GiB:
+        # built once)
         from repro_torch.models import init_params, param_specs
-        params = LOADED[arch] = init_params(
-            param_specs(cfg), 0, dtype=torch.bfloat16, device=dev)
+        params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
+                             device=dev)
     eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
                                     SERVE_NEW, lens, params=params)
     counts, by_shape = read_counts(), launched_shapes()
@@ -1234,12 +1303,9 @@ def phase_serve_full(torch, dev, card, arch, tag):
             "softmax_ppa": {"total": sm}}, rows
 
 
-#: parameters kept for a later phase, by arch (serve_moe's for
-#: serve_moe_sharded and the roofline), the routed expert ids of a serve
-#: run by tag and that run's median decode ms with the recording on, and
-#: the roofline's counting passes by name
-LOADED = {}
-DECODE_MS = {}
+#: the routed expert ids of a serve run by tag and that run's median
+#: decode ms with the recording on, and the roofline's counting passes by
+#: name
 ROUTES = {}
 ROUTED_MS = {}
 ROOFLINE = {}
@@ -1361,33 +1427,47 @@ def _nccl_mesh(torch, dev):
                             mesh_dim_names=("data", "model")), path
 
 
+#: serve_sharded's cut of internlm2-1.8b at full width
+SERVE_SHARDED_LAYERS = 4
+
+
 def phase_serve_sharded(torch, dev, card):
-    """The serve phase's model and requests through
-    ``ServeEngine(ctx=make_ctx(mesh))`` on a ("data", "model") mesh of
-    (1, 1) over NCCL: every parameter a DTensor placed by the "serve"
-    rules, the cache by ``cache_shardings``, the dense layers as DTensor
-    ops between the reference's hints (``shard_hint``).  Gates: the greedy
-    tokens equal the serve phase's exactly (at one rank every
-    redistribute is the identity), ``ppa_fused`` and ``softmax_ppa``
-    launched at least layers x steps times and no plain version ran, the
-    hints redistributed at least layers x steps times.  Returns the
-    launches of each kernel."""
+    """internlm2-1.8b at full width cut to SERVE_SHARDED_LAYERS layers
+    (parameters drawn from seed 0), served locally, then with the same
+    parameters and requests through ``ServeEngine(ctx=make_ctx(mesh))`` on
+    a ("data", "model") mesh of (1, 1) over NCCL: every parameter a
+    DTensor placed by the "serve" rules, the cache by ``cache_shardings``,
+    the dense layers as DTensor ops between the reference's hints
+    (``shard_hint``).  Gates: the greedy tokens equal the local serve's
+    exactly (at one rank every redistribute is the identity),
+    ``ppa_fused`` and ``softmax_ppa`` launched at least layers x steps
+    times and no plain version ran, the hints redistributed at least
+    layers x steps times.  Returns the launches of each kernel."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed import make_ctx
     from repro_torch.kernels import read_counts
+    from repro_torch.models import init_params, param_specs
     from repro_torch.models.common import hint_counts
 
-    cfg = get_config("internlm2-1.8b").replace(
+    cfg = _cut(get_config("internlm2-1.8b"), SERVE_SHARDED_LAYERS).replace(
         act_impl="ppa", compute_dtype="bfloat16")
+    params = init_params(param_specs(cfg), 0, dtype=torch.bfloat16,
+                         device=dev)
+    lens = SERVE_LENS[:SERVE_REQUESTS]
+    eng, local, steps, _ = _serve(torch, dev, cfg, SERVE_REQUESTS, SERVE_NEW,
+                                  lens, params=params)
+    decode = sorted(t for t, adm in steps if adm == 0)
+    local_ms = decode[len(decode) // 2] * 1e3
+    del eng
     mesh, store_path = _nccl_mesh(torch, dev)
     try:
-        lens = SERVE_LENS[:SERVE_REQUESTS]
         eng, reqs, steps, wall = _serve(torch, dev, cfg, SERVE_REQUESTS,
-                                        SERVE_NEW, lens, ctx=make_ctx(mesh))
+                                        SERVE_NEW, lens, params=params,
+                                        ctx=make_ctx(mesh))
         counts, hints = read_counts(), hint_counts["redistributes"]
         placed = type(eng.params["embed"]).__name__
-        del eng
+        del eng, params
         _free(torch)
     finally:
         dist.destroy_process_group()
@@ -1402,15 +1482,15 @@ def phase_serve_sharded(torch, dev, card):
         f"act_backend={cfg.act_backend} on DeviceMesh (1, 1) ('data', "
         f"'model') over nccl, params as {placed}: {sum(map(len, toks))} "
         f"tokens in {wall:.3f}s over {n_steps} engine steps; decode "
-        f"{dec_ms:.2f} ms/step (median) against serve's "
-        f"{DECODE_MS['serve']:.2f}; shard_hint redistributes {hints} "
+        f"{dec_ms:.2f} ms/step (median) against the local serve's "
+        f"{local_ms:.2f}; shard_hint redistributes {hints} "
         f"(layers x steps = {need}); launches fused="
         f"{counts['ppa_fused']['launches']} softmax="
         f"{counts['softmax_ppa']['launches']}; plain {plain}; card {card}")
     if placed != "DTensor":
         raise AssertionError(f"the parameters are {placed}, not DTensors")
-    if toks != TOKENS["serve"]:
-        raise AssertionError("greedy tokens differ from the serve phase's")
+    if toks != [list(r.output) for r in local]:
+        raise AssertionError("greedy tokens differ from the local serve's")
     for k in ("ppa_fused", "softmax_ppa"):
         if counts[k]["launches"] < need:
             raise AssertionError(f"{k} launched {counts[k]['launches']} "
@@ -1562,32 +1642,65 @@ def phase_dryrun(torch, dev, card, jobs):
         ln.strip() for ln in hlo.splitlines()[-16:] if ln.strip()))
 
 
+#: serve_moe_sharded's cut of moonshot at full width: its dense layer and
+#: this many MoE layers
+MOE_SHARDED_MOE_LAYERS = 3
+
+
+def _moe_sharded_cut(cfg):
+    dense, moe = cfg.stages
+    if dense.moe or dense.n_layers != 1 or not moe.moe:
+        raise AssertionError(f"{cfg.arch}: not one dense stage of one "
+                             f"layer and an MoE stage: {cfg.stages}")
+    return cfg.replace(stages=(dense, dataclasses.replace(
+        moe, n_layers=MOE_SHARDED_MOE_LAYERS)))
+
+
 def phase_serve_moe_sharded(torch, dev, card):
-    """serve_moe's full-width moonshot params and requests through
-    ``ServeEngine(ctx=make_ctx(mesh))`` on a ("data", "model") mesh of
-    (1, 1) over NCCL, once in each MoE mode: the greedy tokens and the
-    routed expert ids equal the local serve's exactly (at one rank every
-    collective is the identity), the collectives ran (their counts, and
-    one decode step's c10d ops under an ``OpCosts`` counter), the fused
-    kernel launched at least layers x steps times and no plain version
-    ran.  The token_gather engine's decode step is counted for the
-    roofline.  Returns the two runs' launches of each kernel."""
+    """moonshot at full width cut to its dense layer and
+    MOE_SHARDED_MOE_LAYERS MoE layers (parameters drawn from seed 0),
+    served locally with the routed expert ids recorded, then with the same
+    parameters and requests through ``ServeEngine(ctx=make_ctx(mesh))``
+    on a ("data", "model") mesh of (1, 1) over NCCL, once in each MoE
+    mode: the greedy tokens and the routed expert ids equal the local
+    serve's exactly (at one rank every collective is the identity), the
+    collectives ran (their counts, and one decode step's c10d ops under an
+    ``OpCosts`` counter), the fused kernel launched at least layers x steps
+    times and no plain version ran.  The token_gather engine's decode step
+    is counted for the roofline.  Returns the two runs' launches of each
+    kernel."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.distributed import make_ctx
     from repro_torch.distributed import collectives
     from repro_torch.kernels import read_counts
+    from repro_torch.models import init_params, param_specs
 
-    params = LOADED[MOE_ARCH]
-    base = get_config(MOE_ARCH).replace(act_impl="ppa",
-                                        compute_dtype="bfloat16",
-                                        act_backend="cuda_fused")
+    _free(torch)
+    base = _moe_sharded_cut(get_config(MOE_ARCH).replace(
+        act_impl="ppa", compute_dtype="bfloat16", act_backend="cuda_fused"))
+    params = init_params(param_specs(base), 0, dtype=torch.bfloat16,
+                         device=dev)
     n_moe = sum(st.n_layers for st in base.stages if st.moe)
+    lens = SERVE_LENS[:SERVE_REQUESTS]
+    with _recorded_routes(torch) as local_routes:
+        eng, reqs, steps, wall = _serve(torch, dev, base, SERVE_REQUESTS,
+                                        SERVE_NEW, lens, params=params)
+    local_toks = [list(r.output) for r in reqs]
+    decode = sorted(t for t, adm in steps if adm == 0)
+    local_ms = decode[len(decode) // 2] * 1e3
+    del eng
+    _free(torch)
+    log(f"[serve_moe_sharded] {MOE_ARCH} cut to {base.n_layers}L (1 dense, "
+        f"{n_moe} MoE) served locally, routes recorded: "
+        f"{sum(map(len, local_toks))} tokens in {wall:.3f}s over "
+        f"{len(steps)} engine steps, decode {local_ms:.2f} ms/step "
+        f"(median), {local_routes.ids.numel()} routed expert ids; card "
+        f"{card}")
     totals = collections.Counter()
     mesh, store_path = _nccl_mesh(torch, dev)
     try:
         ctx = make_ctx(mesh)
-        lens = SERVE_LENS[:SERVE_REQUESTS]
         for mode in ("weight_gather", "token_gather"):
             cfg = base.replace(moe_mode=mode)
             with _recorded_routes(torch) as routes:
@@ -1608,15 +1721,14 @@ def phase_serve_moe_sharded(torch, dev, card):
                 f"{mesh.mesh_dim_names} over {dist.get_backend()}: "
                 f"{sum(map(len, toks))} tokens in {wall:.3f}s over "
                 f"{n_steps} engine steps, decode {dec_ms:.2f} ms/step "
-                f"(median, routes recorded: serve_moe's second serve "
-                f"{ROUTED_MS['serve_moe']:.2f}); collectives {coll}; "
-                f"launches fused="
+                f"(median, routes recorded: the local serve's "
+                f"{local_ms:.2f}); collectives {coll}; launches fused="
                 f"{counts['ppa_fused']['launches']} softmax="
                 f"{counts['softmax_ppa']['launches']}; plain {plain}; "
                 f"card {card}")
-            if toks != TOKENS["serve_moe"]:
+            if toks != local_toks:
                 raise AssertionError(f"{mode}: greedy tokens differ from "
-                                     "the local serve_moe run's")
+                                     "the local serve's")
             need = cfg.n_layers * n_steps
             if counts["ppa_fused"]["launches"] < need:
                 raise AssertionError(f"ppa_fused launched "
@@ -1632,24 +1744,25 @@ def phase_serve_moe_sharded(torch, dev, card):
                         f"{mode}: {coll.get(kind, 0)} {kind} collectives "
                         f"< MoE layers x steps = {n_moe * n_steps}")
             if mode == "token_gather":
-                _count_serve(torch, eng, MOE_ARCH, dec_ms, None,
-                             name=f"{MOE_ARCH} sharded (1, 1)")
-                seen = ROOFLINE[f"{MOE_ARCH} sharded (1, 1) decode"][
-                    "costs"].coll_bytes
+                name = f"{MOE_ARCH} {cfg.n_layers}L sharded (1, 1)"
+                _count_serve(torch, eng, MOE_ARCH, dec_ms, None, name=name)
+                seen = ROOFLINE[f"{name} decode"]["costs"].coll_bytes
                 if not (seen.get("all-reduce") and seen.get("all-gather")):
                     raise AssertionError(f"the dispatcher saw no NCCL "
                                          f"collective: {dict(seen)}")
             del eng
             _free(torch)
-            if not torch.equal(routes.ids, ROUTES["serve_moe"]):
+            if not torch.equal(routes.ids, local_routes.ids):
                 raise AssertionError(f"{mode}: routed expert ids differ "
-                                     "from the local serve_moe run's")
+                                     "from the local serve's")
             log(f"[serve_moe_sharded] {mode}: greedy tokens and "
                 f"{routes.ids.numel()} routed expert ids equal to the local "
-                f"serve_moe run's")
+                f"serve's")
     finally:
         dist.destroy_process_group()
         store_path.unlink(missing_ok=True)
+    del params
+    _free(torch)
     # the two runs' launches, each counted from 0 over its own run
     return {k: {"total": n} for k, n in totals.items()}, {}
 
@@ -2198,23 +2311,74 @@ def _grad_gap(torch, a, b) -> float:
                for x, y in zip(leaves(a), leaves(b)))
 
 
-def phase_train_parity(torch, dev):
+# The train parity's controls on an attention-free model (rwkv): the ref
+# arm with the decay table's outputs moved, each by a seeded factor of
+# 1 +- d.  The fused kernel's decays equal its plain version's bit for bit,
+# so every such move is beyond what the kernels may do, and the gate must
+# reject each one.
+DECAY_CONTROLS = {"x(1+-1e-3)": 1e-3, "x(1+-1e-2)": 1e-2}
+
+
+def _moved_decay(torch, dev, decay, d, seed: int = 2):
+    """A control: ``decay`` with each output moved by a factor of 1 +- d (a
+    sign from ``seed``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def fn(x):
+        y = decay(x)
+        sign = torch.randint(0, 2, y.shape, generator=gen,
+                             device=dev).to(y.dtype) * 2 - 1
+        return y * (1 + d * sign)
+    return fn
+
+
+def train_batch(cfg, data, step: int, rng):
+    """The train phases' batch at ``step``: the launcher's tokens
+    (``data``, a ``SyntheticLM``) and, where the config has them, each
+    row's stub frontend outputs drawn from ``rng`` as the serving launcher
+    draws a request's (``launch.serve.request_extras``: whisper's frame
+    embeddings N(0, 0.1) of (enc_seq, d_model)), stacked; numpy arrays."""
+    import numpy as np
+    from repro_torch.launch.serve import request_extras
+
+    batch = dict(data.batch_at(step))
+    rows = [request_extras(cfg, rng) for _ in range(data.global_batch)]
+    for k in rows[0]:
+        batch[k] = np.stack([r[k] for r in rows])
+    return batch
+
+
+def phase_train_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
+                       tag="train_parity", stages=None, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, catch="both"):
+    """One train step's loss and gradients of ``arch`` at full width, each
+    stage cut to ``per_stage`` layers and, with ``stages``, only the first
+    ``stages`` stages kept, float32, through ref, cuda_int and cuda_fused
+    on the same params and ``batch`` x ``seq`` (``train_batch``, seed 1
+    for the frontend's extras): cuda_int and cuda_fused equal, each within
+    the limits below of ref, and every control beyond the kernels' bounds
+    (the moved softmax, PARITY_CONTROLS; on an attention-free model the
+    moved decays, DECAY_CONTROLS) caught: with ``catch`` "both" beyond
+    both limits, with "either" beyond at least one (the gate rejects it),
+    and each limit exceeded by one of them at least."""
     import dataclasses as dc
+    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import init_params, make_acts, param_specs
     from repro_torch.train.train_step import loss_and_grads
     from repro_torch.tree import leaves
 
-    cfg = _cut(get_config("internlm2-1.8b"), 2).replace(
+    _free(torch)
+    cfg = _cut(get_config(arch), per_stage).replace(
         act_impl="ppa", compute_dtype="float32")
+    cfg = cfg.replace(stages=cfg.stages[:stages])
     params = init_params(param_specs(cfg), 0, device=dev)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                       global_batch=TRAIN_BATCH)
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in data.batch_at(0).items()}
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    feed = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(
+        cfg, data, 0, np.random.default_rng(1)).items()}
     arms = {name: loss_and_grads(cfg, make_acts("ppa", name, dev), params,
-                                 batch) for name in PARITY_ARMS}
+                                 feed) for name in PARITY_ARMS}
     ref_acts = make_acts("ppa", "ref", dev)
     ref_loss, ref_grads = arms["ref"]
     gaps = {}
@@ -2222,15 +2386,26 @@ def phase_train_parity(torch, dev):
         loss, grads = arms[name]
         gaps[name] = (abs(float(loss) - float(ref_loss)),
                       _grad_gap(torch, grads, ref_grads))
-    for name, d in PARITY_CONTROLS.items():
-        acts = dc.replace(ref_acts, softmax=_moved_softmax(
-            torch, dev, ref_acts.softmax, d))
-        loss, grads = loss_and_grads(cfg, acts, params, batch)
+    attn = any(st.kind != "rwkv" for st in cfg.stages)
+    if attn:
+        controls = {name: (d is None or d > SOFTMAX_ATOL, dc.replace(
+            ref_acts, softmax=_moved_softmax(torch, dev, ref_acts.softmax,
+                                             d)))
+            for name, d in PARITY_CONTROLS.items()}
+    else:
+        controls = {name: (True, dc.replace(ref_acts, exp_decay=_moved_decay(
+            torch, dev, ref_acts.exp_decay, d)))
+            for name, d in DECAY_CONTROLS.items()}
+    for name, (_, acts) in controls.items():
+        loss, grads = loss_and_grads(cfg, acts, params, feed)
         gaps[f"control {name}"] = (abs(float(loss) - float(ref_loss)),
                                    _grad_gap(torch, grads, ref_grads))
         del grads
+    desc = (f"{arch} {[(st.kind, st.n_layers) for st in cfg.stages]}"
+            + (f" + encoder {cfg.enc_layers}L" if cfg.enc_layers else "")
+            + f" float32, batch {batch} x seq {seq}")
     for name, (dl, dg) in gaps.items():
-        log(f"[train_parity] {name} vs ref: loss gap {dl:.3e} (loss "
+        log(f"[{tag}] {desc}: {name} vs ref: loss gap {dl:.3e} (loss "
             f"{float(ref_loss):.6f}); largest gradient gap {dg:.3e} of its "
             "leaf's largest gradient")
     (li, gi), (lf, gf) = arms["cuda_int"], arms["cuda_fused"]
@@ -2250,9 +2425,9 @@ def phase_train_parity(torch, dev):
     # its largest magnitude, the loss to TRAIN_PARITY_LOSS_REL of ref's.
     # The controls (the ref arm with its softmax moved) calibrate the
     # limits, and those beyond SOFTMAX_ATOL must exceed both.  On an H100
-    # the kernels gave gradient gaps of 1.48e-3 and loss gaps of 0, the
-    # controls beyond the bound 3.8e-2 to 4.0e-1 and 2.3e-6 to 1.8e-5 of
-    # the loss, at its edge 4.7e-3 and 2.4e-7 (PERF.md).
+    # internlm2's kernels gave gradient gaps of 1.48e-3 and loss gaps of
+    # 0, the controls beyond the bound 3.8e-2 to 4.0e-1 and 2.3e-6 to
+    # 1.8e-5 of the loss, at its edge 4.7e-3 and 2.4e-7 (PERF.md).
     loss_limit = TRAIN_PARITY_LOSS_REL * abs(float(ref_loss))
     for name in ("cuda_int", "cuda_fused"):
         if not gaps[name][1] <= TRAIN_PARITY_LIMIT:
@@ -2261,22 +2436,27 @@ def phase_train_parity(torch, dev):
         if not gaps[name][0] <= loss_limit:
             raise AssertionError(f"{name}: loss gap {gaps[name][0]} > "
                                  f"{loss_limit}")
-    for name, d in PARITY_CONTROLS.items():
+    over = {name: (gaps[f"control {name}"][1] > TRAIN_PARITY_LIMIT,
+                   gaps[f"control {name}"][0] > loss_limit)
+            for name, (beyond, _) in controls.items() if beyond}
+    for name, (g_over, l_over) in over.items():
         dl, dg = gaps[f"control {name}"]
-        if (d is None or d > SOFTMAX_ATOL) and not (
-                dg > TRAIN_PARITY_LIMIT and dl > loss_limit):
+        if not (g_over and l_over if catch == "both" else g_over or l_over):
             raise AssertionError(
                 f"control {name}: gradient gap {dg} (limit "
                 f"{TRAIN_PARITY_LIMIT}), loss gap {dl} (limit "
-                f"{loss_limit}): not beyond both")
-    log(f"[train_parity] internlm2-1.8b 2L float32, batch {TRAIN_BATCH} x "
-        f"seq {TRAIN_SEQ}: cuda_int and cuda_fused equal (loss and every "
+                f"{loss_limit}): not beyond {catch}")
+    if not (any(g for g, _ in over.values())
+            and any(l_ for _, l_ in over.values())):
+        raise AssertionError(f"no control beyond the gradient limit and "
+                             f"one beyond the loss limit: {over}")
+    log(f"[{tag}] {desc}: cuda_int and cuda_fused equal (loss and every "
         f"gradient leaf); ref vs either {gaps['cuda_fused'][1]:.3e} <= "
         f"{TRAIN_PARITY_LIMIT} of each leaf's largest gradient and a loss "
         f"gap {gaps['cuda_fused'][0]:.3e} <= {TRAIN_PARITY_LOSS_REL} x loss"
-        f" = {loss_limit:.3e}; every control beyond {SOFTMAX_ATOL} "
-        "rejected by both")
-    del arms
+        f" = {loss_limit:.3e}; every control beyond the kernels' bounds "
+        f"({', '.join(over)}) beyond {catch} limits")
+    del arms, params
     _free(torch)
 
 
@@ -2327,6 +2507,233 @@ def phase_train_resume(torch, dev):
         f"{whole[0]:.5f} -> {whole[-1]:.5f} over {len(whole)} steps; crashed"
         f" after step 3, resumed from step 2: {len(resumed)} losses equal "
         "to the uninterrupted run's bit for bit")
+
+
+# The families' train phases: (arch, batch, seq, depth: None for every
+# layer, or the layers each stage is cut to), TRAIN_FAMILY_STEPS steps of
+# adamw each.  hymba's sequence of 2048 makes its windows of 1024 mask.
+TRAIN_FAMILY_STEPS = 4
+TRAIN_FAMILIES = {
+    "train_hybrid": (HYBRID_ARCH, 2, 2048, None),
+    "train_rwkv": (RWKV_ARCH, 4, 512, None),
+    "train_whisper": (WHISPER_ARCH, 4, 512, None),
+    "train_moe": (MOE_ARCH, 4, 512, 2),
+}
+
+
+def attention_rows(cfg, batch: int, seq: int):
+    """{scores' shape (B, Hk, G, T, S): attention layers that take it} of
+    one forward of ``cfg`` at ``batch`` x ``seq``: the decoder's
+    self-attention, whisper's cross attention to its encoder's frames and
+    the encoder's self-attention."""
+    g = cfg.n_q // cfg.n_kv
+    out = collections.Counter()
+    for st in cfg.stages:
+        if st.kind == "rwkv":
+            continue
+        out[(batch, cfg.n_kv, g, seq, seq)] += st.n_layers
+        if st.kind == "xdec":
+            out[(batch, cfg.n_kv, g, seq, cfg.enc_seq)] += st.n_layers
+    if cfg.enc_layers:
+        out[(batch, cfg.n_kv, g, cfg.enc_seq, cfg.enc_seq)] += cfg.enc_layers
+    return out
+
+
+def train_masks(torch, dev, cfg, shape):
+    """[(label, mask)] of the masks ``cfg``'s attention puts on scores of
+    ``shape`` (B, Hk, G, T, S), as (B, 1, 1, T, S) bool: every key valid
+    against the encoder's frames, causal on the decoder's own tokens, and
+    causal within each window its stages use."""
+    b, t, s = shape[0], shape[-2], shape[-1]
+    if s == cfg.enc_seq and cfg.enc_layers:
+        return [("every key", torch.ones((b, 1, 1, t, s), dtype=torch.bool,
+                                         device=dev))]
+    qp = torch.arange(t, device=dev)[:, None]
+    kp = torch.arange(s, device=dev)[None, :]
+    out = []
+    for w in sorted({st.window for st in cfg.stages},
+                    key=lambda w: w or 0):
+        valid = kp <= qp
+        if w is not None:
+            valid = valid & (kp > qp - w)
+        out.append(("causal" if w is None else f"causal, window {w}",
+                    valid[None, None, None].expand(b, 1, 1, t, s)))
+    return out
+
+
+def _train_loop(torch, dev, cfg, batch, seq, steps, tcfg):
+    """``steps`` steps of ``make_train_step`` on ``train_batch`` (seed 0
+    for the frontend's extras), step 0 under an ``OpCosts`` counter: what
+    ``run_training`` returns, for a batch with the frontend's extras,
+    which the launcher does not draw."""
+    import numpy as np
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params, make_acts, param_specs
+    from repro_torch.models.transformer import dtype_of
+    from repro_torch.roofline import OpCosts
+    from repro_torch.train import make_train_step, train_init
+
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    rng = np.random.default_rng(0)
+    params = init_params(param_specs(cfg), 0, dtype_of(cfg.param_dtype),
+                         device=dev)
+    tstate = train_init(tcfg, params)
+    step_fn = make_train_step(cfg, tcfg, make_acts(cfg.act_impl,
+                                                   cfg.act_backend, dev))
+    out = {"losses": [], "grad_norms": [], "step_s": [], "costs": None}
+    for step in range(steps):
+        feed = {k: torch.as_tensor(v, device=dev)
+                for k, v in train_batch(cfg, data, step, rng).items()}
+        t0 = time.perf_counter()
+        if step == 0:
+            with OpCosts() as out["costs"]:
+                params, tstate, metrics = step_fn(params, tstate, feed)
+        else:
+            params, tstate, metrics = step_fn(params, tstate, feed)
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["step_s"].append(time.perf_counter() - t0)
+    return out
+
+
+#: the families' train parity: (arch, layers a stage, stages kept) as
+#: their serving parities cut them.  Their gate must catch each control
+#: beyond the kernels' bounds by either limit (internlm2's ``train_parity``
+#: by both): on moonshot's cut the +-1e-5 control moved the gradients by
+#: 0.22 of a leaf's largest, the loss by 6.7e-6 of a limit of 1.24e-5
+#: (NVIDIA H100 80GB HBM3, 700.00 W)
+TRAIN_PARITY_FAMILIES = {
+    "train_parity_hybrid": (HYBRID_ARCH, 1, HYBRID_PARITY_STAGES),
+    "train_parity_rwkv": (RWKV_ARCH, 2, None),
+    "train_parity_whisper": (WHISPER_ARCH, WHISPER_PARITY_LAYERS, None),
+    "train_parity_moe": (MOE_ARCH, 1, None),
+}
+
+
+def phase_train_family(torch, dev, card, tag):
+    """Full-width training of TRAIN_FAMILIES[``tag``] (float32 master
+    weights from seed 0, bf16 compute, act_impl="ppa", cuda_fused, the
+    config's remat, adamw), TRAIN_FAMILY_STEPS steps through the
+    launcher's ``run_training``, or, for a batch with the frontend's
+    extras (whisper's ``enc_feats``), ``make_train_step`` on
+    ``train_batch``: every loss and gradient norm finite, no plain version
+    run, and per step at least layers x (1 + recomputes) launches of the
+    fused kernel, attention layers x (1 + recomputes) of the softmax at
+    each scores' shape and attention layers of its backward there; step
+    ms, tokens/s, peak memory; step 0 under an ``OpCosts`` counter (the
+    roofline of the step, every kernel launch's reported bytes its
+    bound's).  Returns the launches of each kernel and ``path_rows`` of
+    this run."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import read_counts, reset_counts
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import param_specs
+    from repro_torch.roofline import active_params, analyze_costs, \
+        model_flops
+    from repro_torch.train import OptCfg, ScheduleCfg, TrainCfg
+
+    arch, batch, seq, depth = TRAIN_FAMILIES[tag]
+    cfg = get_config(arch).replace(act_impl="ppa", act_backend="cuda_fused")
+    if depth is not None:
+        cfg = _cut(cfg, depth)
+    if (cfg.param_dtype, cfg.compute_dtype) != ("float32", "bfloat16"):
+        raise AssertionError(f"{tag} wants float32 master weights and bf16 "
+                             f"compute, got {cfg}")
+    steps = TRAIN_FAMILY_STEPS
+    sched = ScheduleCfg(peak_lr=3e-4, warmup_steps=2)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    if cfg.enc_layers or cfg.vision_tokens:
+        out = _train_loop(torch, dev, cfg, batch, seq, steps, TrainCfg(
+            opt=OptCfg(kind="adamw"), sched=sched))
+        entry = "train/train_step.py::make_train_step on train_batch"
+    else:
+        out = run_training(
+            cfg, steps=steps, ckpt_dir=None, resume="none", ckpt_every=0,
+            batch_override=batch, seq_override=seq, opt_kind="adamw",
+            sched=sched, log_every=1, device=dev, costs_step=0)
+        entry = "launch/train.py::run_training"
+    counts, by_shape = read_counts(), launched_shapes()
+    mem = torch.cuda.max_memory_allocated(dev)
+    losses, gnorms = out["losses"], out["grad_norms"]
+    plain = {k: c["plain"] for k, c in counts.items() if "plain" in c}
+    forwards = 1 + (cfg.remat in ("dots", "full"))
+    layers = cfg.n_layers + cfg.enc_layers
+    rows_at = attention_rows(cfg, batch, seq)
+    need = {"ppa_fused": layers * steps * forwards}
+    need_at = {("softmax_ppa", shape): n * steps * forwards
+               for shape, n in rows_at.items()}
+    need_at.update({("softmax_ppa_bwd", shape): n * steps
+                    for shape, n in rows_at.items()})
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens = batch * seq
+    stages = [(st.kind, st.n_layers) + ((f"window {st.window}",)
+                                        if st.window else ())
+              + (("moe",) if st.moe else ()) for st in cfg.stages]
+    front = (f", encoder {cfg.enc_layers}L on {cfg.enc_seq} frames "
+             f"(enc_feats ({batch}, {cfg.enc_seq}, {cfg.d_model}))"
+             if cfg.enc_layers else "")
+    log(f"[{tag}] {arch} {cfg.n_layers}L {stages}{front} d_model "
+        f"{cfg.d_model} vocab {cfg.vocab}, float32 master weights, bf16 "
+        f"compute, act_impl=ppa act_backend={cfg.act_backend} "
+        f"remat={cfg.remat}, adamw, batch {batch} x seq {seq} through "
+        f"{entry}: losses {losses}; grad norms before clipping "
+        f"{[f'{g:.3e}' for g in gnorms]}")
+    log(f"[{tag}] step ms {[round(t, 2) for t in step_ms]}; median of steps"
+        f" 2-{steps} {med:.2f} ms = {tokens / med * 1e3:.1f} tokens/s; "
+        f"max_memory_allocated {mem / 2**30:.2f} GiB; card {card}")
+    log(f"[{tag}] launches {dict((k, c['launches']) for k, c in counts.items() if k != 'ref')}"
+        f" by shape {dict((k, v) for k, v in by_shape.items() if k != 'ppa_fused_variants')};"
+        f" at least {need} and per scores' shape {need_at} (layers x steps,"
+        f" the forward kernels x{forwards} for the recompute under remat="
+        f"{cfg.remat}); plain calls {plain}")
+    # step 0 ran under the roofline's counter; every step launches the
+    # same kernels
+    costs = out["costs"]
+    checked = _kernel_bytes_check(costs)
+    launched = sum(counts[k]["launches"] for k in
+                   ("ppa_fused", "softmax_ppa", "softmax_ppa_bwd"))
+    r = analyze_costs(costs, arch=arch, shape=f"train batch {batch} x seq "
+                      f"{seq}, adamw", mesh_desc="1 card", chips=1,
+                      model_fl=model_flops(active_params(
+                          cfg, param_specs(cfg)), tokens, "train"))
+    log(f"[{tag}] step 0 counted: FLOPs {costs.flops:.6e}, bytes "
+        f"{costs.bytes:.6e}; t_compute {r.t_compute * 1e3:.4f} ms, t_memory "
+        f"{r.t_memory * 1e3:.4f} ms -> {r.bottleneck}; t_useful "
+        f"{r.t_useful * 1e3:.4f} ms against the median step {med:.2f} ms = "
+        f"{r.measured_share(med / 1e3):.4f}; {checked} kernel launches, "
+        f"bytes as their bounds'; bytes by op "
+        f"{collections.Counter(costs.op_bytes).most_common(6)}; card {card}")
+    if len(losses) != steps or not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"{tag}: losses {losses}, grad norms {gnorms}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran in {tag}: {plain}")
+    if checked * steps != launched:
+        raise AssertionError(f"{tag}: step 0 reported {checked} kernel "
+                             f"launches, the run launched {launched} in "
+                             f"{steps} steps")
+    for k, n in need.items():
+        if counts[k]["launches"] < n:
+            raise AssertionError(f"{k} launched {counts[k]['launches']} "
+                                 f"times in {steps} steps < {n}")
+    for (k, shape), n in need_at.items():
+        if by_shape[k].get(shape, 0) < n:
+            raise AssertionError(f"{k} launched {by_shape[k].get(shape, 0)}"
+                                 f" times at {shape} in {steps} steps < {n}")
+    if not rows_at and (counts["softmax_ppa"]["launches"]
+                        or counts["softmax_ppa_bwd"]["launches"]):
+        raise AssertionError(f"{tag}: the softmax launched in an "
+                             "attention-free model")
+    del out, costs
+    _free(torch)
+    rows = path_rows(torch, dev, tag, by_shape, masks=functools.partial(
+        train_masks, torch, dev, cfg))
+    log_rows(tag, rows)
+    return {k: {"total": counts[k]["launches"]}
+            for k in ("ppa_fused", "softmax_ppa", "softmax_ppa_bwd")}, rows
 
 
 def phase_flash(torch, dev):
@@ -2405,8 +2812,6 @@ def phase_flash(torch, dev):
 # -- the FQA compiler on the card ---------------------------------------------
 #: the compile phase's store, under the checkout's ignored build/
 STORE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_store"
-#: worker processes of the numpy compiles, one table each
-NUMPY_PROCESSES = 6
 #: the workflow phase's hardware segment capacity and NAF
 WORKFLOW_SEG_T = 16
 WORKFLOW_NAF = "sigmoid"
@@ -2436,37 +2841,136 @@ def _numpy_compile(naf: str, bits: int):
     return table.to_json(), time.perf_counter() - t0
 
 
-def _numpy_compiles(jobs):
-    """{naf: (table, seconds)} of ``jobs`` on the numpy backend, one
-    single-threaded worker process a table (spawned, so that none inherits
-    this process's CUDA context); every worker has ended on return."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-    from repro_torch.core import PPATable
+#: spawned processes that compile the compile and sweep phases' host
+#: references (the numpy backend) beside the card's phases, from the start
+#: of the run; the tables in the order they are handed out, the longest
+#: first (their times on the numpy backend: my chip run 4, PR 26)
+HOST_PROCESSES = 3
+HOST_TABLES = (("exp_neg", 16), ("softplus", 16), ("sigmoid_wide", 16),
+               ("tanh_wide", 16), ("gelu_inner", 16), ("softplus", 8),
+               ("sigmoid_wide", 8), ("exp_neg", 8), ("gelu_inner", 8),
+               ("tanh_wide", 8), ("exp2_frac", 16), ("exp2_frac", 8))
+#: how long a phase waits for a host table
+HOST_TIMEOUT_S = 600
 
-    with ProcessPoolExecutor(
-            max_workers=min(NUMPY_PROCESSES, len(jobs)),
-            mp_context=multiprocessing.get_context("spawn")) as ex:
-        futs = {naf: ex.submit(_numpy_compile, naf, cfg.w_out)
-                for naf, cfg, _ in jobs}
+
+class HostCompiles:
+    """The numpy backend's compiles of the six 16-bit (compile phase) and
+    six 8-bit (sweep phase) deployment tables, started after the build in
+    HOST_PROCESSES spawned single-threaded processes (spawned: none
+    inherits this process's CUDA context), beside the card's phases; a
+    phase waits for its tables (``get``).  ``stop`` ends every process."""
+
+    def __init__(self):
+        import multiprocessing
+        import os
+        self.t0 = time.perf_counter()
+        self.done = {}
+        threads = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                   "MKL_NUM_THREADS")
+        saved = {k: os.environ.get(k) for k in threads}
+        os.environ.update({k: "1" for k in threads})   # the workers' own
+        try:
+            self.pool = multiprocessing.get_context("spawn").Pool(
+                HOST_PROCESSES)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        self.res = {key: self.pool.apply_async(
+            _numpy_compile, key, callback=functools.partial(self._done, key))
+            for key in HOST_TABLES}
+        log(f"[host] {HOST_PROCESSES} spawned processes compile the "
+            f"{len(HOST_TABLES)} deployment tables on the numpy backend "
+            f"beside the card's phases; os.cpu_count() {os.cpu_count()}")
+
+    def _done(self, key, _):
+        self.done[key] = time.perf_counter() - self.t0
+
+    def get(self, jobs, bits):
+        """({naf: (table, seconds)} of ``jobs`` at ``bits``, the seconds
+        this call waited, and a log line of when each was done)."""
+        from repro_torch.core import PPATable
+        t0 = time.perf_counter()
         out = {}
-        for naf, fut in futs.items():
-            js, sec = fut.result()
+        for naf, _, _ in jobs:
+            js, sec = self.res[(naf, bits)].get(timeout=HOST_TIMEOUT_S)
             out[naf] = (PPATable.from_json(js), sec)
+        waited = time.perf_counter() - t0
+        line = (f"host arm ({HOST_PROCESSES} processes beside the card's "
+                f"phases): the {bits}-bit tables done at "
+                + ", ".join(f"{naf} {self.done.get((naf, bits), 0.0):.1f} s"
+                            for naf, _, _ in jobs)
+                + f" after their start, {sum(s for _, s in out.values()):.3f}"
+                f" s of compiling; this phase waited {waited:.3f} s for them")
+        return out, waited, line
+
+    def stop(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+#: the compile phase's tables compiled in a spawned process on the card
+#: while this one compiles the others: about half the dispatches each (PR
+#: 26's counts: 52,084 against 62,964).  The card serves two processes'
+#: dispatches at about 1.4 times one's rate (the sweep phase's two modes).
+COMPILE_SPAWNED = ("exp_neg", "exp2_frac")
+
+
+def _first_use(backend) -> None:
+    """The card's backend's first use (allocator, library handles)
+    outside the timed compiles: a small order-2 table."""
+    from repro_torch.compiler import CompilerSession, compile_table
+    from repro_torch.core import FWLConfig, PPAScheme
+    compile_table("sigmoid", FWLConfig(7, 7, (7, 7), (7, 7), 7),
+                  PPAScheme(order=2), session=CompilerSession(),
+                  search_backend=backend)
+
+
+def _card_compiles(nafs, store_dir):
+    """In a spawned worker: the 16-bit deployment tables of ``nafs``
+    compiled on the card's ``TorchSearchBackend`` through
+    ``compile_or_load`` into the store at ``store_dir``; returns {naf:
+    (JSON, seconds, the backend's counts), "compiles": the store's}."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    from repro_torch.compiler import TableStore
+    from repro_torch.core import searchspace
+    from repro_torch.models import ppa_table_jobs
+
+    dev = torch.device("cuda", 0)
+    backend = searchspace.TorchSearchBackend(dev)
+    _first_use(backend)
+    torch.cuda.synchronize()
+    store = TableStore(store_dir)
+    out = {}
+    for naf, cfg, scheme in ppa_table_jobs("ppa"):
+        if naf not in nafs:
+            continue
+        before = dict(backend.counts)
+        t0 = time.perf_counter()
+        tab = store.compile_or_load(naf, cfg, scheme, search_backend=backend)
+        torch.cuda.synchronize()
+        out[naf] = (tab.to_json(), time.perf_counter() - t0,
+                    {k: v - before[k] for k, v in backend.counts.items()})
+    out["compiles"] = store.compiles
     return out
 
 
-def phase_compile(torch, dev, card):
+def phase_compile(torch, dev, card, host):
     """The six 16-bit deployment tables compiled on the card
     (``TorchSearchBackend``) through ``compile_or_load`` into a fresh
-    store: each equal to the shipped JSON on its fields, and each equal
+    store, COMPILE_SPAWNED in a spawned process, the others in this one,
+    at once: each equal to the shipped JSON on its fields, and each equal
     (``table_identity``) to the port's numpy backend's compile of it on
-    the host.  Returns the store."""
+    the host (``host``: started with the run).  Returns the store."""
     import json as _json
+    import multiprocessing
     import shutil
-    from repro_torch.compiler import (CompilerSession, TableStore,
-                                      compile_table, table_identity)
-    from repro_torch.core import FWLConfig, PPAScheme
+    from repro_torch.compiler import CompileJob, TableStore, table_identity
+    from repro_torch.core import PPATable
     from repro_torch.core import searchspace
     from repro_torch.models import ppa_table_jobs
     from repro_torch.tables import table_path
@@ -2474,22 +2978,37 @@ def phase_compile(torch, dev, card):
     jobs = ppa_table_jobs("ppa")
     shutil.rmtree(STORE_DIR, ignore_errors=True)
     store = TableStore(STORE_DIR)
-    backend = searchspace.TorchSearchBackend(dev)
-    # first use of the card's backend (allocator, library handles) outside
-    # the timed compiles: a small order-2 table
-    compile_table("sigmoid", FWLConfig(7, 7, (7, 7), (7, 7), 7),
-                  PPAScheme(order=2), session=CompilerSession(),
-                  search_backend=backend)
-    torch.cuda.synchronize()
-    card_tabs = {}
-    for naf, cfg, scheme in jobs:
-        before = dict(backend.counts)
-        t0 = time.perf_counter()
-        tab = store.compile_or_load(naf, cfg, scheme,
-                                    search_backend=backend)
+    t_phase = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        spawned = pool.apply_async(_card_compiles,
+                                   (COMPILE_SPAWNED, str(STORE_DIR)))
+        backend = searchspace.TorchSearchBackend(dev)
+        _first_use(backend)
         torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        cnt = {k: v - before[k] for k, v in backend.counts.items()}
+        done = {}
+        for naf, cfg, scheme in jobs:
+            if naf in COMPILE_SPAWNED:
+                continue
+            before = dict(backend.counts)
+            t0 = time.perf_counter()
+            tab = store.compile_or_load(naf, cfg, scheme,
+                                        search_backend=backend)
+            torch.cuda.synchronize()
+            done[naf] = (tab, time.perf_counter() - t0,
+                         {k: v - before[k]
+                          for k, v in backend.counts.items()}, "this")
+        worker = spawned.get(timeout=HOST_TIMEOUT_S)
+    finally:
+        pool.terminate()
+        pool.join()
+    wall = time.perf_counter() - t_phase
+    for naf in COMPILE_SPAWNED:
+        js, sec, cnt = worker[naf]
+        done[naf] = (PPATable.from_json(js), sec, cnt, "a spawned")
+    card_tabs = {}
+    for naf, _, _ in jobs:
+        tab, sec, cnt, where = done[naf]
         card_tabs[naf] = (tab, sec)
         shipped = _json.loads(table_path(naf, 16).read_text())
         got = _json.loads(tab.to_json())
@@ -2498,23 +3017,25 @@ def phase_compile(torch, dev, card):
             raise AssertionError(f"{naf}-16 compiled on the card differs "
                                  f"from the shipped JSON in {bad}")
         evals = int(tab.stats["candidate_evals"])
-        log(f"[compile] {naf}-16 FQA-O2 on the card (torch): "
-            f"{tab.num_segments} segments, "
+        log(f"[compile] {naf}-16 FQA-O2 on the card (torch, {where} "
+            f"process): {tab.num_segments} segments, "
             f"{int(tab.stats['segment_evals'])} segment evaluations, "
             f"{evals} candidate evaluations in {sec:.3f} s = "
             f"{evals / sec:,.0f}/s; {cnt['dispatches']} dispatches "
             f"({cnt['blocks']} blocks, {cnt['lanes']} padded lanes); "
             f"equal to the shipped JSON; card {card}")
-    if store.compiles != len(jobs):
-        raise AssertionError(f"{store.compiles} compiles for {len(jobs)} "
-                             "jobs into a fresh store")
-    t0 = time.perf_counter()
-    host = _numpy_compiles(jobs)
-    wall = time.perf_counter() - t0
+    compiles = store.compiles + worker["compiles"]
+    if compiles != len(jobs):
+        raise AssertionError(f"{compiles} compiles for {len(jobs)} jobs "
+                             "into a fresh store")
+    if any(store.lookup(CompileJob(*j)) is None for j in jobs):
+        raise AssertionError("a table is missing from the store")
+    host_tabs, _, line = host.get(jobs, 16)
+    log(f"[compile] {line}")
     total = {"torch": 0.0, "numpy": 0.0}
     for naf, _, _ in jobs:
         tab, sec = card_tabs[naf]
-        ref, ref_sec = host[naf]
+        ref, ref_sec = host_tabs[naf]
         if table_identity(ref) != table_identity(tab):
             raise AssertionError(f"{naf}-16: the numpy backend's table is "
                                  "not the card's")
@@ -2526,12 +3047,13 @@ def phase_compile(torch, dev, card):
         total["torch"] += sec
         total["numpy"] += ref_sec
         log(f"[compile] {naf}-16 on the host (numpy, one process of "
-            f"{min(NUMPY_PROCESSES, len(jobs))}): {ref_sec:.3f} s = "
+            f"{HOST_PROCESSES}): {ref_sec:.3f} s = "
             f"{evals / ref_sec:,.0f} candidate evaluations/s; numpy's time "
             f"over the card's {ref_sec / sec:.2f}; table_identity equal")
-    log(f"[compile] six 16-bit tables: card {total['torch']:.3f} s in all; "
-        f"host numpy {total['numpy']:.3f} s summed over its processes, "
-        f"{wall:.3f} s wall; store {store.stats()}; card {card}")
+    log(f"[compile] six 16-bit tables: card {total['torch']:.3f} s summed "
+        f"over its two processes, {wall:.3f} s wall; "
+        f"host numpy {total['numpy']:.3f} s summed over its processes; "
+        f"store {store.stats()}; card {card}")
     return store
 
 
@@ -2716,7 +3238,7 @@ def _sweep_check(tag, reports, st, jobs, host, shipped, wall):
                         for (o, pid), v in sorted(by_pid.items())))
 
 
-def phase_sweep(torch, dev, card, store):
+def phase_sweep(torch, dev, card, store, host):
     """The six 8-bit deployment tables (``ppa_table_jobs("ppa8")``)
     compiled on ``TorchSearchBackend`` twice: by ``run_shard`` on
     SWEEP_HOSTS simulated hosts at once (threads, each with its own store
@@ -2724,9 +3246,9 @@ def phase_sweep(torch, dev, card, store):
     SWEEP_LIVE_WORKERS spawned ``run_live`` workers on one shared
     directory.  Each key compiled once in each mode, by spawned workers on
     the card; every table equal to a serial compile (the numpy backend,
-    one spawned process a table) by ``table_identity`` and to the shipped
-    ``*-8.json``; then ``merge_shards`` brings them into the compile
-    phase's store."""
+    one spawned process a table, ``host``: started with the run) by
+    ``table_identity`` and to the shipped ``*-8.json``; then
+    ``merge_shards`` brings them into the compile phase's store."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.compiler import (CompileJob, TableStore, merge_shards,
@@ -2744,13 +3266,11 @@ def phase_sweep(torch, dev, card, store):
     root = STORE_DIR.parent / "chip_smoke_sweep"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        t0 = time.perf_counter()
-        host = _numpy_compiles(triples)
+        serial, _, line = host.get(triples, 8)
         log(f"[sweep] serial reference: the six 8-bit tables on the numpy "
-            f"backend, one spawned process a table, in "
-            f"{time.perf_counter() - t0:.3f} s wall ("
+            f"backend, one spawned process a table ("
             + ", ".join(f"{naf} {sec:.3f} s" for naf, (_, sec)
-                        in host.items()) + ")")
+                        in serial.items()) + f"); {line}")
 
         def shard(i):
             return run_shard(jobs, hosts=SWEEP_HOSTS, host_id=i,
@@ -2766,7 +3286,7 @@ def phase_sweep(torch, dev, card, store):
         mstats = merge_shards(merged, [root / f"host{i}"
                                        for i in range(SWEEP_HOSTS)])
         log(_sweep_check(f"run_shard x {SWEEP_HOSTS} hosts + merge", reports,
-                         merged, jobs, host, shipped, wall)
+                         merged, jobs, serial, shipped, wall)
             + f"; merge {mstats}; card {card}")
 
         t0 = time.perf_counter()
@@ -2777,7 +3297,7 @@ def phase_sweep(torch, dev, card, store):
         if list((root / "live").glob("*.claim")):
             raise AssertionError("run_live left claims behind")
         log(_sweep_check(f"run_live x {SWEEP_LIVE_WORKERS} spawned workers",
-                         live, TableStore(root / "live"), jobs, host,
+                         live, TableStore(root / "live"), jobs, serial,
                          shipped, wall) + f"; card {card}")
 
         stats = merge_shards(store, [root / "merged"])
@@ -3254,13 +3774,16 @@ def main() -> int:
             return None
 
     run("build", phase_build)
-    jobs = {}
+    jobs, host = {}, None
     try:
         if not failed:
             jobs = dryrun_start()
-            rows, paths = phases(run, failed, torch, dev, card, jobs)
+            host = HostCompiles()
+            rows, paths = phases(run, failed, torch, dev, card, jobs, host)
     finally:
         dryrun_stop(jobs)
+        if host is not None:
+            host.stop()
     log(f"[chip_smoke] all phases in {time.perf_counter() - t_start:.1f}s")
     if failed:
         log(f"chip_smoke: FAILED phases {failed}")
@@ -3268,7 +3791,7 @@ def main() -> int:
     return report(torch, rows, paths)
 
 
-def phases(run, failed, torch, dev, card, jobs):
+def phases(run, failed, torch, dev, card, jobs, host):
     """Every phase after the build, in order (``run`` each, which adds a
     failed one's name to ``failed``); returns the kernel rows and each
     path's launches."""
@@ -3284,14 +3807,10 @@ def phases(run, failed, torch, dev, card, jobs):
     run("train_resume", phase_train_resume, torch, dev)
     paths["serve_moe"] = run("serve_moe", phase_serve_full, torch, dev,
                              card, MOE_ARCH, "serve_moe")
-    if MOE_ARCH in LOADED:
-        paths["serve_moe_sharded"] = run(
-            "serve_moe_sharded", phase_serve_moe_sharded, torch, dev,
-            card)
-    else:
-        failed.append("serve_moe_sharded")
+    paths["serve_moe_sharded"] = run("serve_moe_sharded",
+                                     phase_serve_moe_sharded, torch, dev,
+                                     card)
     run("roofline", phase_roofline, torch, dev, card)
-    LOADED.clear()
     _free(torch)
     run("dryrun", phase_dryrun, torch, dev, card, jobs)
     _free(torch)
@@ -3318,9 +3837,17 @@ def phases(run, failed, torch, dev, card, jobs):
     run("parity_vlm", phase_parity, torch, dev, VLM_ARCH, 2,
         "parity_vlm")
     _free(torch)
-    store = run("compile", phase_compile, torch, dev, card)
+    for tag in TRAIN_FAMILIES:
+        paths[tag] = run(tag, phase_train_family, torch, dev, card, tag)
+    # the train parity on each family at its serving parity's depth, its
+    # train phase's batch
+    for tag, (arch, per_stage, stages) in TRAIN_PARITY_FAMILIES.items():
+        _, batch, seq, _ = TRAIN_FAMILIES[tag.replace("_parity", "")]
+        run(tag, phase_train_parity, torch, dev, arch, per_stage, tag,
+            stages, batch, seq, "either")
+    store = run("compile", phase_compile, torch, dev, card, host)
     run("workflow", phase_workflow, torch, dev, card)
-    run("sweep", phase_sweep, torch, dev, card, store)
+    run("sweep", phase_sweep, torch, dev, card, store, host)
     paths["tune"] = run("tune", phase_tune, torch, dev, card, store)
     paths["serve_store"] = run("serve_store", phase_serve_store, torch,
                                dev, card, store)

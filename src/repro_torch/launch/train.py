@@ -94,9 +94,11 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
         losses.append(float(metrics["loss"]))
         grad_norms.append(float(metrics["grad_norm"]))
         if step % log_every == 0 or step == steps - 1:
-            rec = logger.log(step, **metrics)
-            print(f"step {step:5d} loss {rec['loss']:.4f} "
-                  f"lr {rec['lr']:.2e} gnorm {rec['grad_norm']:.3f}")
+            logger.log(step, **metrics)
+            # the metrics themselves: the logger's record holds None for a
+            # value that is not finite
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"lr {float(metrics['lr']):.2e} gnorm {grad_norms[-1]:.3f}")
         if simulate_crash_at == step:
             print(f"[crash] simulated crash at step {step} (post-update, "
                   "pre-checkpoint)")

@@ -62,7 +62,6 @@ from typing import Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 __all__ = ["OpCosts", "report_kernel", "counting", "counting_fakes",
            "node_mark",
@@ -199,8 +198,44 @@ def _read_bytes(t: torch.Tensor) -> int:
     return n * t.element_size()
 
 
+#: each op's argument names and the arguments it writes, by op
+_SCHEMAS: Dict = {}
+#: the ops that have no decomposition (``decompose`` returned
+#: NotImplemented: whether an op has one does not depend on its arguments)
+_WHOLE: set = set()
+
+
+def _schema(func):
+    """(argument names, names of the arguments ``func`` writes)."""
+    out = _SCHEMAS.get(func)
+    if out is None:
+        args = func._schema.arguments
+        out = _SCHEMAS[func] = (
+            [a.name for a in args],
+            frozenset(a.name for a in args if a.alias_info is not None
+                      and a.alias_info.is_write))
+    return out
+
+
+def _fake_tensor():
+    from torch._subclasses.fake_tensor import FakeTensor
+    return FakeTensor
+
+
 def _tensors(x) -> list:
-    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+    """The tensors in ``x``, an op's arguments or results: nested lists,
+    tuples and dicts (what ``tree_leaves`` flattens, walked by hand: it
+    runs for every op counted)."""
+    out, todo = [], [x]
+    while todo:
+        v = todo.pop()
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (list, tuple)):
+            todo.extend(v)
+        elif isinstance(v, dict):
+            todo.extend(v.values())
+    return out
 
 
 def _nbytes(x) -> int:
@@ -274,7 +309,7 @@ class OpCosts(TorchDispatchMode):
             return NotImplemented
         if func.namespace == "prim" or self._foreign(args, kwargs):
             return func(*args, **kwargs)
-        if func.overloadpacket not in _MATMULS:
+        if func.overloadpacket not in _MATMULS and func not in _WHOLE:
             # a composite op (matmul, einsum, linear, reshape: they reach a
             # mode whole under inference_mode) is counted as the ops it
             # runs, with this mode in force again
@@ -285,6 +320,7 @@ class OpCosts(TorchDispatchMode):
                 TorchDispatchMode.__exit__(self, None, None, None)
             if out is not NotImplemented:
                 return out
+            _WHOLE.add(func)
         out = func(*args, **kwargs)
         self._count(func, args, kwargs, out)
         return out
@@ -293,9 +329,8 @@ class OpCosts(TorchDispatchMode):
         """Whether a tensor of ``args`` or ``kwargs`` is a fake tensor of
         another fake mode than the counter's (DTensor's sharding
         propagation)."""
-        from torch._subclasses.fake_tensor import FakeTensor
-        return any(isinstance(t, FakeTensor) and t.fake_mode
-                   is not self.fake_mode
+        fake = _fake_tensor()
+        return any(isinstance(t, fake) and t.fake_mode is not self.fake_mode
                    for t in _tensors([args, kwargs]))
 
     def _track(self, out) -> None:
@@ -333,14 +368,11 @@ class OpCosts(TorchDispatchMode):
             if packet in _ALLOC:
                 self._track(out)
             return
-        named = {}
-        for i, a in enumerate(func._schema.arguments):
-            if i < len(args):
-                named[a.name] = args[i]
-            elif a.name in kwargs:
-                named[a.name] = kwargs[a.name]
-        dest = {a.name for a in func._schema.arguments
-                if a.alias_info is not None and a.alias_info.is_write}
+        names, dest = _schema(func)
+        named = dict(zip(names, args))
+        for k in names[len(args):]:
+            if k in kwargs:
+                named[k] = kwargs[k]
         if packet in _GATHERS:
             # the index, and the rows read as they are written
             nbytes = _nbytes([v for k, v in named.items()

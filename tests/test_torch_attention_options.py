@@ -38,7 +38,9 @@ import repro.kernels.ops as RKO  # noqa: E402
 import repro.models as RM  # noqa: E402
 from repro.models.activations import make_acts as ref_make_acts  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import fused as KF  # noqa: E402
 from repro_torch.kernels import ops as KO  # noqa: E402
+from repro_torch.kernels import softmax_ppa as KS  # noqa: E402
 from repro_torch.models import (decode_step, make_acts,  # noqa: E402
                                 params_from_jax, prefill, prepare_params)
 from repro_torch.models import attention as A  # noqa: E402
@@ -80,36 +82,78 @@ def store():
 class TableAlign:
     """The reference's ``ref`` backend records the grid point of every
     table evaluation (an ordered host callback, so jitted code records in
-    program order); the port's ``ref`` backend evaluates its table on
-    the recorded points in the same order, and counts its own points that
-    differ (``flips``) and by how many steps (``worst``)."""
+    program order); the port's ``backend`` evaluates its table on the
+    recorded points in the same order, and counts its own points that
+    differ (``flips``) and by how many steps (``worst``).
 
-    def __init__(self, monkeypatch):
-        self.points, self.used = [], 0
+    ``points``: a recording made before (``record``), replayed without
+    recording again.  The kernel backends' plain versions replay where
+    they evaluate a table: ``cuda_int`` its integer datapath, ``cuda_fused``
+    its fused path, and both the softmax kernel's forward and backward.
+    The backward recomputes the forward's exponentials from the same
+    inputs, so its evaluations take the points its forward took, and
+    consume none."""
+
+    def __init__(self, monkeypatch, backend="ref", points=None):
+        self.points, self.used = ([] if points is None else points), 0
         self.flips = self.inputs = self.worst = 0
-        ref_eval = RKO.get_backend("ref").eval_int
-        port_eval = KO.get_backend("ref").eval_int
+        self._memo, self._rerun = {}, False
+        if points is None:
+            ref_eval = RKO.get_backend("ref").eval_int
 
-        def record(tc, x_int):
-            jax.debug.callback(lambda v: self.points.append(np.asarray(v)),
-                               x_int, ordered=True)
-            return ref_eval(tc, x_int)
+            def record(tc, x_int):
+                jax.debug.callback(
+                    lambda v: self.points.append(np.asarray(v)), x_int,
+                    ordered=True)
+                return ref_eval(tc, x_int)
 
+            monkeypatch.setitem(RKO._BACKENDS, "ref", dataclasses.replace(
+                RKO.get_backend("ref"), eval_int=record))
+        if backend in ("ref", "cuda_int"):
+            be = KO.get_backend(backend)
+            monkeypatch.setitem(KO._BACKENDS, backend, dataclasses.replace(
+                be, eval_int=self._replayer(be.eval_int)))
+        if backend == "cuda_fused":
+            monkeypatch.setattr(KF, "eval_ref", self._replayer(KF.eval_ref))
+        if backend != "ref":
+            monkeypatch.setattr(KS, "eval_ref", self._replayer(KS.eval_ref))
+            bwd = KS.softmax_ppa_bwd_plain
+
+            def rerun(*args, **kwargs):
+                self._rerun = True
+                try:
+                    return bwd(*args, **kwargs)
+                finally:
+                    self._rerun = False
+
+            monkeypatch.setattr(KS, "softmax_ppa_bwd_plain", rerun)
+
+    def _replayer(self, port_eval):
         def replay(tc, x_int):
+            got = x_int.numpy().astype(np.int64)
+            key = (tc.naf, got.shape, got.tobytes())
+            if self._rerun:
+                assert key in self._memo, "a backward evaluation that its " \
+                    "forward did not make"
+                return self._memo[key]
             want = self.points[self.used]
             self.used += 1
-            assert want.shape == tuple(x_int.shape), (want.shape,
-                                                      x_int.shape)
-            d = np.abs(x_int.numpy().astype(np.int64) - want)
-            self.flips += int(np.count_nonzero(d))
-            self.inputs += d.size
-            self.worst = max(self.worst, int(d.max(initial=0)))
-            return port_eval(tc, torch.from_numpy(np.array(want)))
+            assert want.shape == got.shape, (want.shape, got.shape)
+            y = self._align(tc, got, want, port_eval)
+            self._memo[key] = y
+            return y
+        return replay
 
-        monkeypatch.setitem(RKO._BACKENDS, "ref", dataclasses.replace(
-            RKO.get_backend("ref"), eval_int=record))
-        monkeypatch.setitem(KO._BACKENDS, "ref", dataclasses.replace(
-            KO.get_backend("ref"), eval_int=replay))
+    def _align(self, tc, got, want, port_eval):
+        """The port's table at the reference's points ``want``, its own
+        points ``got`` counted against them."""
+        self._count(np.abs(got - want))
+        return port_eval(tc, torch.from_numpy(np.array(want, np.int32)))
+
+    def _count(self, d):
+        self.flips += int(np.count_nonzero(d))
+        self.inputs += d.size
+        self.worst = max(self.worst, int(d.max(initial=0)))
 
     def check(self):
         """Every recorded evaluation replayed, each flip one grid step, at
@@ -118,6 +162,15 @@ class TableAlign:
         assert self.worst <= 1, self.worst
         assert self.flips <= FLIP_SHARE * max(self.inputs, 1), (
             self.flips, self.inputs)
+
+    @classmethod
+    def record(cls, fn):
+        """``(fn(), points)``: ``fn`` run with the reference's table
+        evaluations recorded, for replays into several backends."""
+        with pytest.MonkeyPatch.context() as mp:
+            align = cls(mp)
+            out = fn()
+        return out, align.points
 
 
 def _variant(cfg, option):

@@ -33,7 +33,6 @@ from repro.models import mlp as RMLP  # noqa: E402
 from repro.models import transformer as RTr  # noqa: E402
 from repro.models.activations import make_acts as ref_make_acts  # noqa: E402
 import repro_torch.models as M  # noqa: E402
-from repro_torch.kernels import ops as KO  # noqa: E402
 import repro_torch.serve.engine as SE  # noqa: E402
 from repro_torch.models import (decode_step, forward_hidden,  # noqa: E402
                                 init_cache, loss_fn, make_acts, param_specs,
@@ -77,33 +76,21 @@ class FracAlign(TableAlign):
     2^k T(f) is the reference's; the flip counts as one step.  ``check``
     is ``TableAlign``'s."""
 
-    def __init__(self, monkeypatch):
-        port_eval = KO.get_backend("ref").eval_int
-        super().__init__(monkeypatch)
-        self.wraps = 0
+    wraps = 0
 
-        def replay(tc, x_int):
-            want = self.points[self.used]
-            self.used += 1
-            assert want.shape == tuple(x_int.shape)
-            got = x_int.numpy().astype(np.int64)
-            d = np.abs(got - want)
-            y = port_eval(tc, torch.from_numpy(np.array(want, np.int32)))
-            if tc.naf == "exp2_frac":
-                wrap = d > (tc.hi - tc.lo) // 2
-                if wrap.any():
-                    d = np.where(wrap, tc.hi - tc.lo - d, d)
-                    self.wraps += int(np.count_nonzero(wrap))
-                    scale = np.where(wrap, 2.0 ** np.sign(got - want), 1.0)
-                    y = y.to(torch.float32) * torch.from_numpy(
-                        scale.astype(np.float32))
-            self.flips += int(np.count_nonzero(d))
-            self.inputs += d.size
-            self.worst = max(self.worst, int(d.max(initial=0)))
-            return y
-
-        monkeypatch.setitem(KO._BACKENDS, "ref", KO.Backend(
-            "ref", eval_int=replay))
+    def _align(self, tc, got, want, port_eval):
+        d = np.abs(got - want)
+        y = port_eval(tc, torch.from_numpy(np.array(want, np.int32)))
+        if tc.naf == "exp2_frac":
+            wrap = d > (tc.hi - tc.lo) // 2
+            if wrap.any():
+                d = np.where(wrap, tc.hi - tc.lo - d, d)
+                self.wraps += int(np.count_nonzero(wrap))
+                scale = np.where(wrap, 2.0 ** np.sign(got - want), 1.0)
+                y = y.to(torch.float32) * torch.from_numpy(
+                    scale.astype(np.float32))
+        self._count(d)
+        return y
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -314,24 +301,43 @@ def _batch(cfg):
             "enc_feats": _feats(cfg, 2, 4)}
 
 
-def test_forward_loss_and_grads_match_reference(smoke, store, monkeypatch):
+@pytest.fixture(scope="module")
+def reference(smoke, store):
+    """The reference's ``forward_hidden`` and ``jax.value_and_grad`` of its
+    ``loss_fn`` on ``_batch``, remat off, its table evaluations recorded
+    (``FracAlign.record``): ((hidden, loss, gradients), points)."""
+    rcfg, cfg, rparams = smoke
+    rcfg = rcfg.replace(remat="none")
+    racts = ref_make_acts("ppa", "ref", store)
+    jb = _j(_batch(cfg))
+
+    def run():
+        rh, _ = jax.jit(lambda p, b: RM.forward_hidden(
+            p, rcfg, b, racts, RM.ShardCtx()))(_j(rparams), jb)
+        (rloss, _), rgrads = jax.jit(jax.value_and_grad(
+            lambda p, b: RM.loss_fn(p, rcfg, b, racts, RM.ShardCtx()),
+            has_aux=True))(_j(rparams), jb)
+        return np.asarray(rh), float(rloss), dict(leaves_with_path(
+            jax.tree_util.tree_map(np.asarray, rgrads)))
+    return FracAlign.record(run)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_forward_loss_and_grads_match_reference(smoke, reference, backend,
+                                                monkeypatch):
     """``forward_hidden`` within MODULE_REL; the loss within
     STEP_LOSS_RTOL and each gradient leaf (the encoder's included) within
     STEP_GRAD_REL of its largest magnitude, the tolerances of the train
-    step; remat "full" gives the gradients of none bit for bit."""
-    rcfg, cfg, rparams = smoke
-    rcfg, cfg = rcfg.replace(remat="none"), cfg.replace(remat="none")
-    batch = _batch(cfg)
-    align = FracAlign(monkeypatch)
-    racts = ref_make_acts("ppa", "ref", store)
-    jb = _j(batch)
-    rh, _ = jax.jit(lambda p, b: RM.forward_hidden(
-        p, rcfg, b, racts, RM.ShardCtx()))(_j(rparams), jb)
-    (rloss, _), rgrads = jax.jit(jax.value_and_grad(
-        lambda p, b: RM.loss_fn(p, rcfg, b, racts, RM.ShardCtx()),
-        has_aux=True))(_j(rparams), jb)
-    acts = make_acts("ppa", "ref", "cpu")
-    tb = params_from_jax(batch, "cpu")
+    step; remat "full" gives the gradients of none bit for bit.  On every
+    backend: the kernel backends' plain versions run the card's autograd
+    path (``_STE`` on gelu, ``_SoftmaxSTE`` on the encoder's, the
+    decoder's and the cross attention's softmax)."""
+    _, cfg, rparams = smoke
+    cfg = cfg.replace(remat="none")
+    (rh, rloss, rflat), points = reference
+    align = FracAlign(monkeypatch, backend, points)
+    acts = make_acts("ppa", backend, "cpu")
+    tb = params_from_jax(_batch(cfg), "cpu")
     with torch.inference_mode():
         h = forward_hidden(prepare_params(params_from_jax(rparams, "cpu"),
                                           cfg), cfg, tb, acts)
@@ -346,10 +352,7 @@ def test_forward_loss_and_grads_match_reference(smoke, store, monkeypatch):
 
     loss, params = grads(cfg)
     align.check()
-    assert abs(float(loss) - float(rloss)) <= STEP_LOSS_RTOL * abs(
-        float(rloss))
-    rflat = dict(leaves_with_path(jax.tree_util.tree_map(np.asarray,
-                                                         rgrads)))
+    assert abs(float(loss) - rloss) <= STEP_LOSS_RTOL * abs(rloss)
     assert len(rflat) == len(list(leaves_with_path(params)))
     for k, p in leaves_with_path(params):
         want = rflat[k]
@@ -525,3 +528,32 @@ def test_serve_launcher_draws_the_extras():
     launch_serve.main(["--arch", ARCH, "--smoke", "--requests", "2",
                        "--max-new", "2", "--prompt-len", "5",
                        "--device", "cpu", "--cache-len", "32"])
+
+
+def test_train_batch_draws_enc_feats_as_request_extras():
+    """``chip_smoke.train_batch`` (the batch of the card's ``train_whisper``
+    phase): the launcher's tokens at the step, and each row's
+    ``enc_feats`` the draw ``launch.serve.request_extras`` makes of a
+    request from the same generator, row after row."""
+    import sys
+    from pathlib import Path
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.serve import request_extras
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = get_smoke_config(ARCH)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=16, global_batch=3)
+    rng = np.random.default_rng(0)
+    got = [chip_smoke.train_batch(cfg, data, step, rng) for step in (0, 5)]
+    rng = np.random.default_rng(0)
+    for step, batch in zip((0, 5), got):
+        want = np.stack([request_extras(cfg, rng)["enc_feats"]
+                         for _ in range(3)])
+        assert batch["enc_feats"].dtype == np.float32
+        assert batch["enc_feats"].shape == (3, cfg.enc_seq, cfg.d_model)
+        np.testing.assert_array_equal(batch["enc_feats"], want)
+        for k, v in data.batch_at(step).items():
+            np.testing.assert_array_equal(batch[k], v)
+    assert not np.array_equal(got[0]["enc_feats"], got[1]["enc_feats"])

@@ -56,8 +56,11 @@ def ref_store():
 
 @pytest.fixture
 def artifacts_unchanged():
+    # every path under artifacts/ and each file's bytes: the reference's
+    # store refreshes a file's mtime on each disk hit (its LRU), which
+    # tests of other files running beside this one do
     def snap():
-        return sorted((str(p), p.stat().st_mtime_ns)
+        return sorted((str(p), p.read_bytes() if p.is_file() else None)
                       for p in (REPO / "artifacts").rglob("*"))
     before = snap()
     yield

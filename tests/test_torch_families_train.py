@@ -39,6 +39,9 @@ from test_torch_families import NEW_ARCHS, _pair  # noqa: E402
 from test_torch_models import seeded_store  # noqa: E402
 from test_torch_train import STEP_GRAD_REL, STEP_LOSS_RTOL  # noqa: E402
 
+#: the backends a train parity test runs: the plain one and the kernel
+#: backends, whose plain versions on CPU tensors take the card's autograd
+BACKENDS = ("ref", "cuda_int", "cuda_fused")
 #: the aux loss, port against reference (float32 means and a sum of
 #: products, in another order)
 AUX_RTOL = 1e-6
@@ -67,38 +70,58 @@ def _batch(vocab):
         vocab=vocab, seq_len=16, global_batch=4).batch_at(3).items()}
 
 
-def _port_grads(cfg, rparams, batch):
+def _port_grads(cfg, rparams, batch, backend="ref"):
     params = map_tree(lambda p: p.requires_grad_(True),
                       params_from_jax(rparams, "cpu"))
     loss, aux = loss_fn(params, cfg, {k: torch.from_numpy(v)
                                       for k, v in batch.items()},
-                        make_acts(cfg.act_impl, "ref", "cpu"))
+                        make_acts(cfg.act_impl, backend, "cpu"))
     loss.backward()
     return loss.detach(), aux, params
 
 
-def test_smoke_loss_aux_and_grads_match_reference(smoke, store,
-                                                  monkeypatch):
-    rcfg, cfg, rparams = smoke
-    rcfg, cfg = rcfg.replace(remat="none"), cfg.replace(remat="none")
-    batch = _batch(cfg.vocab)
-    align = TableAlign(monkeypatch)
+def reference_grads(rcfg, rparams, batch, store, align=TableAlign):
+    """``jax.value_and_grad`` of the reference's ``loss_fn`` on the ``ref``
+    backend over the shipped tables, recorded for ``align`` (its
+    ``record``): ((loss, aux, grads as numpy), points)."""
     racts = ref_make_acts("ppa", "ref", store)
-    (rloss, raux), rgrads = jax.jit(jax.value_and_grad(
-        lambda p, b: RM.loss_fn(p, rcfg, b, racts, RM.ShardCtx()),
-        has_aux=True))(
-        jax.tree_util.tree_map(jnp.asarray, rparams),
-        {k: jnp.asarray(v) for k, v in batch.items()})
-    loss, aux, params = _port_grads(cfg, rparams, batch)
+
+    def run():
+        (loss, aux), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: RM.loss_fn(p, rcfg, b, racts, RM.ShardCtx()),
+            has_aux=True))(
+            jax.tree_util.tree_map(jnp.asarray, rparams),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+        return float(loss), float(aux["aux"]), dict(leaves_with_path(
+            jax.tree_util.tree_map(np.asarray, grads)))
+    return align.record(run)
+
+
+@pytest.fixture(scope="module")
+def reference(smoke, store):
+    rcfg, cfg, rparams = smoke
+    return reference_grads(rcfg.replace(remat="none"), rparams,
+                           _batch(cfg.vocab), store)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_smoke_loss_aux_and_grads_match_reference(smoke, reference, backend,
+                                                  monkeypatch):
+    """On every backend (the kernel backends' plain versions: ``_STE`` and
+    ``_SoftmaxSTE``, the card's autograd path), against one recording of
+    the reference."""
+    _, cfg, rparams = smoke
+    cfg = cfg.replace(remat="none")
+    (rloss, raux, rflat), points = reference
+    align = TableAlign(monkeypatch, backend, points)
+    loss, aux, params = _port_grads(cfg, rparams, _batch(cfg.vocab),
+                                    backend)
     align.check()
-    assert abs(float(loss) - float(rloss)) <= STEP_LOSS_RTOL * abs(
-        float(rloss))
+    assert abs(float(loss) - rloss) <= STEP_LOSS_RTOL * abs(rloss)
     if cfg.moe_experts:
-        assert float(raux["aux"]) > 0
-    got_aux, want_aux = float(aux["aux"].detach()), float(raux["aux"])
-    assert abs(got_aux - want_aux) <= AUX_RTOL * abs(want_aux)
-    rflat = dict(leaves_with_path(jax.tree_util.tree_map(np.asarray,
-                                                         rgrads)))
+        assert raux > 0
+    got_aux = float(aux["aux"].detach())
+    assert abs(got_aux - raux) <= AUX_RTOL * abs(raux)
     for k, p in leaves_with_path(params):
         want = rflat[k]
         scale = float(np.abs(want).max())

@@ -941,3 +941,67 @@ def test_sharded_adafactor_over_nccl_on_two_cards(tmp_path):
                                  *res["state"].items()]:
             np.testing.assert_allclose(got, want, rtol=OPT_RTOL,
                                        atol=OPT_ATOL, err_msg=str(key))
+
+
+#: the training rows the backward takes its block path on (rows longer than
+#: its warp path's 1024 scores): whisper's encoder scores at batch 1, every
+#: key valid, and hymba's at batch 1 under its window of 1024
+BLOCK_BWD_CASES = {"whisper encoder": ((1, 16, 1, 1500, 1500), None),
+                   "hymba window": ((1, 5, 5, 2048, 2048), 1024)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BLOCK_BWD_CASES))
+def test_softmax_bwd_block_kernel_at_training_rows(case):
+    """The softmax backward kernel on the block path within
+    SOFTMAX_BWD_REL of its plain version: unmasked and under the all-valid
+    mask at whisper's rows of 1500, under hymba's causal window at rows of
+    2048 (every row from 1 to 1024 valid keys)."""
+    dev = _card()
+    shape, window = BLOCK_BWD_CASES[case]
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(shape, generator=gen, device=dev) * 4.0
+    g = torch.randn(shape, generator=gen, device=dev)
+    b, t, s = shape[0], shape[-2], shape[-1]
+    assert softmax_ppa.route(s, True, softmax_ppa._BWD_LANE_VALUES) == (0, 0)
+    if window is None:
+        masks = (None, torch.ones((b, 1, 1, t, s), dtype=torch.bool,
+                                  device=dev))
+    else:
+        qp = torch.arange(t, device=dev)[:, None]
+        kp = torch.arange(s, device=dev)[None, :]
+        masks = (((kp <= qp) & (kp > qp - window))[None, None, None]
+                 .expand(b, 1, 1, t, s),)
+    lim = SOFTMAX_BWD_REL * float(g.abs().max())
+    K.reset_counts()
+    for w in masks:
+        got = softmax_ppa.softmax_ppa_bwd(x, g, tc, w)
+        want = softmax_ppa.softmax_ppa_bwd_plain(x, g, tc, w)
+        assert float((got - want).abs().max()) <= lim
+    assert K.read_counts()["softmax_ppa_bwd"]["launches"] == len(masks)
+
+
+@pytest.mark.gpu
+def test_ste_gradient_of_the_fused_kernel_on_decays():
+    """``ppa_act`` on ``exp_neg`` (the decays) through cuda_fused with a
+    gradient: the fused kernel's forward, bit for bit the plain path's
+    (``ref``), and the straight-through backward equal to the plain path's,
+    one launch and no plain call on the kernel path."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp_neg", 16), dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.rand((2, 64, 320, 16), generator=gen, device=dev) * 6.0
+    g = torch.randn(x.shape, generator=gen, device=dev)
+    out = {}
+    for backend in ("cuda_fused", "ref"):
+        tx = x.clone().requires_grad_(True)
+        K.reset_counts()
+        y = K.ppa_act(tc, tx, backend)
+        y.backward(g)
+        out[backend] = (y.detach(), tx.grad, K.read_counts())
+    (yk, gk, ck), (yr, gr, _) = out["cuda_fused"], out["ref"]
+    assert ck["ppa_fused"] == {"launches": 1, "plain": 0}
+    assert ck["ref"]["plain"] == 0
+    assert torch.equal(yk, yr)
+    assert torch.equal(gk, gr)

@@ -4,7 +4,8 @@ reference: the hymba-1.5b and rwkv6-3b smoke configs with
 across (``test_torch_recurrent.ref_params``).
 
 * ``loss_fn``'s loss and gradients against ``jax.value_and_grad`` of the
-  reference's, the tables aligned (``TableAlign``).  Both recompute each SSM
+  reference's, the tables aligned (``TableAlign``), on the ``ref`` backend
+  and the kernel backends' plain versions.  Both recompute each SSM
   and time-mix chunk in the backward (``torch.utils.checkpoint``,
   ``jax.checkpoint``), so the tables are evaluated again there, in the same
   order; remat is off on both sides otherwise.
@@ -17,15 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-import repro.models as RM  # noqa: E402
-from repro.models.activations import make_acts as ref_make_acts  # noqa: E402
 from repro_torch.tree import leaves_with_path  # noqa: E402
 
 from test_torch_attention_options import TableAlign  # noqa: E402
-from test_torch_families_train import _batch, _port_grads  # noqa: E402
+from test_torch_families_train import (BACKENDS, _batch,  # noqa: E402
+                                       _port_grads, reference_grads)
 from test_torch_models import seeded_store  # noqa: E402
 from test_torch_recurrent import ARCHS, smoke_pair  # noqa: E402
 from test_torch_train import STEP_GRAD_REL, STEP_LOSS_RTOL  # noqa: E402
@@ -49,25 +46,27 @@ def smoke(request):
     return smoke_pair(request.param)
 
 
-def test_smoke_loss_and_grads_match_reference(smoke, store, monkeypatch):
-    """Loss within STEP_LOSS_RTOL, each gradient leaf within STEP_GRAD_REL
-    of its largest magnitude (the train step's tolerances)."""
+@pytest.fixture(scope="module")
+def reference(smoke, store):
     rcfg, cfg, rparams = smoke
-    rcfg, cfg = rcfg.replace(remat="none"), cfg.replace(remat="none")
-    batch = _batch(cfg.vocab)
-    align = TableAlign(monkeypatch)
-    racts = ref_make_acts("ppa", "ref", store)
-    (rloss, _), rgrads = jax.jit(jax.value_and_grad(
-        lambda p, b: RM.loss_fn(p, rcfg, b, racts, RM.ShardCtx()),
-        has_aux=True))(
-        jax.tree_util.tree_map(jnp.asarray, rparams),
-        {k: jnp.asarray(v) for k, v in batch.items()})
-    loss, _, params = _port_grads(cfg, rparams, batch)
+    return reference_grads(rcfg.replace(remat="none"), rparams,
+                           _batch(cfg.vocab), store)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_smoke_loss_and_grads_match_reference(smoke, reference, backend,
+                                              monkeypatch):
+    """Loss within STEP_LOSS_RTOL, each gradient leaf within STEP_GRAD_REL
+    of its largest magnitude (the train step's tolerances), on every
+    backend: the kernel backends' plain versions run the card's autograd
+    path (``_STE`` on the decays, ``_SoftmaxSTE``)."""
+    _, cfg, rparams = smoke
+    cfg = cfg.replace(remat="none")
+    (rloss, _, rflat), points = reference
+    align = TableAlign(monkeypatch, backend, points)
+    loss, _, params = _port_grads(cfg, rparams, _batch(cfg.vocab), backend)
     align.check()
-    assert abs(float(loss) - float(rloss)) <= STEP_LOSS_RTOL * abs(
-        float(rloss))
-    rflat = dict(leaves_with_path(jax.tree_util.tree_map(np.asarray,
-                                                         rgrads)))
+    assert abs(float(loss) - rloss) <= STEP_LOSS_RTOL * abs(rloss)
     for k, p in leaves_with_path(params):
         want = rflat[k]
         scale = float(np.abs(want).max())

@@ -170,6 +170,99 @@ def test_opt_update_matches_reference(kind):
             _close(got, want, OPT_RTOL, OPT_ATOL, k)
 
 
+#: adafactor's update clipping divides a leaf's update by the RMS of the
+#: whole leaf, the mean of n positive float32 terms.  Summed in any order,
+#: and divided by n, such a mean is within GAMMA(n) = n u / (1 - n u)
+#: (u = 2^-24) of the exact one (Higham, Accuracy and Stability of
+#: Numerical Algorithms, 2nd ed., (4.4)): two orders within 2 GAMMA(n) of
+#: each other.  The square root halves a relative gap, so the clipped update
+#: u~ = upd / max(rms, 1) moves by at most GAMMA(n) |u~|, and a parameter's
+#: step lr u~ by GAMMA(n) lr |u~|, summed over the steps (the moments do not
+#: read the parameters).  XLA and torch take the mean in other orders on
+#: the CPU, and the card in a third, so this term is stated beside the
+#: optimizer's tolerances for adafactor's leaves: on one unfactored (4, 64,
+#: 32) leaf the port missed OPT_ATOL + OPT_RTOL |p| by up to 2.4e-7 on 15
+#: of 8192 parameters near 0, each 1 ulp of the mean apart.
+def rms_gamma(n: int) -> float:
+    u = 2.0 ** -24
+    return n * u / (1 - n * u)
+
+
+def rms_order_atol(trajectory, lrs, weight_decay):
+    """GAMMA(n) x sum_i lr_i |u~_i| for one leaf, read off the reference's
+    parameters before and after each step (``trajectory``: n_steps + 1
+    arrays): lr u~ = -(p_i - p_{i-1}) - lr wd p_{i-1}."""
+    p = [np.asarray(a, np.float64) for a in trajectory]
+    steps = sum(np.abs(b - a + lr * weight_decay * a)
+                for a, b, lr in zip(p, p[1:], lrs))
+    return rms_gamma(p[0].size) * steps
+
+
+def assert_opt_close(got, want, extra, what=""):
+    """Within OPT_ATOL + OPT_RTOL |want| + ``extra`` (elementwise)."""
+    got, want = np.asarray(got), np.asarray(want)
+    gap = np.abs(got.astype(np.float64) - want)
+    bad = gap > OPT_ATOL + OPT_RTOL * np.abs(want) + extra
+    assert not bad.any(), (what, int(bad.sum()), float(gap.max()))
+
+
+ADA_LEAF, ADA_SEED, ADA_STEPS = (4, 64, 32), 7, 3
+#: the control's move of the port's whole-leaf mean: twice what the two
+#: orders may differ by
+ADA_CONTROL = 4.0
+
+
+@pytest.mark.parametrize("control", [False, True], ids=["port", "control"])
+def test_adafactor_large_unfactored_leaf_matches_reference(control,
+                                                           monkeypatch):
+    """One unfactored (4, 64, 32) leaf, N(0, 1) parameters, gradients
+    0.1 N(0, 1), three adafactor steps at lr 1e-2 / (i + 1): the port
+    within the optimizer's tolerances plus the RMS mean's order term
+    (``rms_order_atol``), its moments within the optimizer's tolerances.
+    The control moves the port's whole-leaf mean by ADA_CONTROL x
+    GAMMA(n), beyond what the term allows, and must miss it."""
+    from repro_torch.train import optimizer as O
+    if control:
+        means = O._means
+
+        def moved(p=None):
+            mean = means(p)
+
+            def m(x, dim=None, keepdim=False, leaf_dim=None):
+                out = mean(x, dim, keepdim, leaf_dim)
+                return out * (1 + ADA_CONTROL * rms_gamma(x.numel())) \
+                    if dim is None else out
+            return m
+        monkeypatch.setattr(O, "_means", moved)
+    rng = np.random.default_rng(ADA_SEED)
+    p0 = rng.normal(size=ADA_LEAF).astype(np.float32)
+    grads = [(0.1 * rng.normal(size=ADA_LEAF)).astype(np.float32)
+             for _ in range(ADA_STEPS)]
+    cfg, rcfg = OptCfg(kind="adafactor"), RT.OptCfg(kind="adafactor")
+    rp = {"w": jnp.array(p0, copy=True)}
+    rs = RT.opt_init(rcfg, rp)
+    tp = params_from_jax({"w": p0}, "cpu")
+    ts = params_from_jax(_np(rs), "cpu")
+    assert set(ts["mu"]["w"]) == {"v"}          # unfactored
+    traj, lrs = [p0], []
+    for i, g in enumerate(grads):
+        lr = np.float32(1e-2 / (i + 1))
+        rp, rs = RT.opt_update(rcfg, {"w": jnp.array(g, copy=True)}, rs, rp,
+                               jnp.float32(lr))
+        tp, ts = opt_update(cfg, params_from_jax({"w": g}, "cpu"), ts, tp,
+                            torch.tensor(lr))
+        traj.append(np.array(rp["w"]))
+        lrs.append(float(lr))
+    extra = rms_order_atol(traj, lrs, cfg.weight_decay)
+    _close(ts["mu"]["w"]["v"], np.asarray(rs["mu"]["w"]["v"]), OPT_RTOL,
+           OPT_ATOL, "v")
+    if not control:
+        assert_opt_close(tp["w"].numpy(), traj[-1], extra, "w")
+    else:
+        with pytest.raises(AssertionError):
+            assert_opt_close(tp["w"].numpy(), traj[-1], extra, "w")
+
+
 def _aligned(shape, seed):
     """A float32 numpy array whose buffer starts on a 64-byte boundary,
     which ``jnp.asarray`` on the CPU may wrap without a copy."""
@@ -211,6 +304,49 @@ def test_clip_grads_and_global_norm_match_reference():
                                   leaves_with_path(_np(want))):
             _close(a, b, 1e-6, 0, k)
     assert torch.equal(clip_grads(tg, 1e4)[0]["w"], tg["w"])
+
+
+def test_clip_grads_finite_where_the_sum_of_squares_overflows():
+    """Gradients whose norm is beyond float32's square root of its largest
+    value (whisper-medium's and hymba-1.5b's at their random init on the
+    card): the reference's float32 sum of squares overflows to inf and its
+    clip scales every gradient to 0; the port's norm is the finite one,
+    within float32 rounding of the float64 norm, and its clip scales the
+    gradients to ``max_norm``.  Below the overflow the two are equal
+    (``test_clip_grads_and_global_norm_match_reference``)."""
+    rng = np.random.default_rng(5)
+    g_np = {"w": (rng.normal(size=(64, 32)) * 1e19).astype(np.float32),
+            "b": rng.normal(size=(32,)).astype(np.float32)}
+    want = float(np.sqrt(sum(np.sum(np.square(v.astype(np.float64)))
+                             for v in g_np.values())))
+    rg, rn = RT.clip_grads(jax.tree_util.tree_map(jnp.asarray, g_np), 1.0)
+    assert not np.isfinite(float(rn))
+    assert not np.asarray(rg["w"]).any()
+    tg = params_from_jax(g_np, "cpu")
+    assert not torch.isfinite(global_norm(tg))
+    got, n = clip_grads(tg, 1.0)
+    assert abs(float(n) - want) <= 1e-6 * want
+    assert abs(float(global_norm(got)) - 1.0) <= 1e-6
+
+
+def test_run_training_logs_a_gradient_norm_that_is_not_finite(monkeypatch,
+                                                              capsys):
+    """A step whose gradient norm is not finite is logged and returned, as
+    the metrics logger records it (None in its JSON), not a formatting
+    error."""
+    def fake_step(cfg, tcfg, acts):
+        def step(params, tstate, batch):
+            return params, tstate, {"loss": torch.tensor(6.0),
+                                    "grad_norm": torch.tensor(np.inf),
+                                    "lr": torch.tensor(1e-4),
+                                    "param_norm": torch.tensor(1.0)}
+        return step
+    monkeypatch.setattr(launch_train, "make_train_step", fake_step)
+    out = launch_train.run_training(
+        get_smoke_config(ARCH), steps=2, ckpt_dir=None, resume="none",
+        ckpt_every=0, batch_override=2, seq_override=8, device="cpu")
+    assert out["grad_norms"] == [np.inf, np.inf]
+    assert "gnorm inf" in capsys.readouterr().out
 
 
 # ------------------------------------------------------------ cross entropy
@@ -270,6 +406,44 @@ def test_softmax_bwd_plain_is_reference_vjp(bits, masked):
     if masked:
         assert not got[1, :, 2].any()
     assert float(got[0, 1, 2, [3, 17, 30]].abs().min()) > 0.0
+
+
+#: rows the card's training takes the backward's block path on (rows longer
+#: than its warp path's 1024 scores), at batch 1 and a few heads: whisper's
+#: encoder and cross attention (rows of 1500, every key valid) and hymba's
+#: windowed layers (rows of 2048, keys within a window of 1024 of a causal
+#: query), held at query rows across the sequence
+LONG_ROWS = {"whisper 1500 unmasked": ((1, 3, 1, 40, 1500), None, None),
+             "hymba 2048 window 1024": ((1, 2, 2, 40, 2048), 1024, True)}
+
+
+@pytest.mark.parametrize("case", list(LONG_ROWS))
+def test_softmax_bwd_plain_is_reference_vjp_on_long_rows(case):
+    shape, window, causal = LONG_ROWS[case]
+    rtc, tc = _pair("exp2_frac", 16)
+    rng = np.random.default_rng(43)
+    x = rng.normal(0, 4, size=shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    where = None
+    if causal:
+        t, s = shape[-2:]
+        qp = np.linspace(0, s - 1, t).astype(np.int64)[:, None]
+        kp = np.arange(s)[None, :]
+        where = np.broadcast_to((kp <= qp) & (kp > qp - window),
+                                (shape[0], 1, 1, t, s))
+        assert where.sum(-1).max() == window and where.sum(-1).min() == 1
+    jw = None if where is None else jnp.asarray(where)
+    _, vjp = jax.vjp(lambda v: RK.ppa_softmax(rtc, v, where=jw),
+                     jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    tw = None if where is None else torch.from_numpy(where.copy())
+    got = softmax_ppa.softmax_ppa_bwd_plain(torch.from_numpy(x),
+                                            torch.from_numpy(g), tc, tw)
+    assert softmax_ppa.route(shape[-1], True, softmax_ppa._BWD_LANE_VALUES
+                             ) == (0, 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=SOFTMAX_GRAD_RTOL,
+                               atol=SOFTMAX_GRAD_ATOL)
 
 
 # ------------------------------------------------------------- train step
