@@ -2844,7 +2844,7 @@ def _numpy_compile(naf: str, bits: int):
 #: spawned processes that compile the compile and sweep phases' host
 #: references (the numpy backend) beside the card's phases, from the start
 #: of the run; the tables in the order they are handed out, the longest
-#: first (their times on the numpy backend: my chip run 4, PR 26)
+#: first (by their compile times on the numpy backend)
 HOST_PROCESSES = 3
 HOST_TABLES = (("exp_neg", 16), ("softplus", 16), ("sigmoid_wide", 16),
                ("tanh_wide", 16), ("gelu_inner", 16), ("softplus", 8),
@@ -2913,9 +2913,10 @@ class HostCompiles:
 
 
 #: the compile phase's tables compiled in a spawned process on the card
-#: while this one compiles the others: about half the dispatches each (PR
-#: 26's counts: 52,084 against 62,964).  The card serves two processes'
-#: dispatches at about 1.4 times one's rate (the sweep phase's two modes).
+#: while this one compiles the others: about half the dispatches each
+#: (52,084 against 62,964, the counts the phase logs).  The card serves two
+#: processes' dispatches at about 1.4 times one's rate (the sweep phase's
+#: two modes).
 COMPILE_SPAWNED = ("exp_neg", "exp2_frac")
 
 
