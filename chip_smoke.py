@@ -173,7 +173,11 @@ Phases (any failure exits non-zero and prints no result line):
             attention's (4, 16, 1, 512, 1500)); moonshot-v1-16b-a3b cut
             to 2 dense and 2 MoE layers of 64 experts, 4 x 512; the others
             through ``launch/train.py::run_training``.  Each: every loss
-            and gradient norm finite, no plain version run, per step at
+            and parameter norm finite, every gradient norm finite or inf
+            as the reference's clip overflows (its float32 sum of
+            squares; whisper's and hymba's at their random init: the
+            update is then the weight decay only), no plain version run,
+            per step at
             least layers x 2 launches of the fused kernel, and at each
             scores' shape attention layers x 2 of the softmax and
             attention layers of its backward; step ms, tokens/s, peak
@@ -2580,7 +2584,8 @@ def _train_loop(torch, dev, cfg, batch, seq, steps, tcfg):
     tstate = train_init(tcfg, params)
     step_fn = make_train_step(cfg, tcfg, make_acts(cfg.act_impl,
                                                    cfg.act_backend, dev))
-    out = {"losses": [], "grad_norms": [], "step_s": [], "costs": None}
+    out = {"losses": [], "grad_norms": [], "param_norms": [], "step_s": [],
+           "costs": None}
     for step in range(steps):
         feed = {k: torch.as_tensor(v, device=dev)
                 for k, v in train_batch(cfg, data, step, rng).items()}
@@ -2592,6 +2597,7 @@ def _train_loop(torch, dev, cfg, batch, seq, steps, tcfg):
             params, tstate, metrics = step_fn(params, tstate, feed)
         out["losses"].append(float(metrics["loss"]))
         out["grad_norms"].append(float(metrics["grad_norm"]))
+        out["param_norms"].append(float(metrics["param_norm"]))
         out["step_s"].append(time.perf_counter() - t0)
     return out
 
@@ -2610,21 +2616,45 @@ TRAIN_PARITY_FAMILIES = {
 }
 
 
+def _check_train_norms(tag, steps, out):
+    """Every loss and parameter norm finite, and every gradient norm
+    finite or +inf.  An inf norm is the reference's own clip at a norm
+    beyond about 1.8e19 (whisper-medium's and hymba-1.5b's at their random
+    init): its float32 sum of squares overflows and it scales every
+    gradient to 0, so the step moves only the weight decay.  A NaN or inf
+    gradient entry would make the norm NaN, or the clipped entry (inf x 0)
+    and so the parameters after the step NaN: a finite parameter norm
+    after the step shows the gradients were finite."""
+    import math
+    losses, gnorms, pnorms = (out["losses"], out["grad_norms"],
+                              out["param_norms"])
+    if (len(losses) != steps or len(pnorms) != steps
+            or not all(map(math.isfinite, losses + pnorms))
+            or not all(math.isfinite(g) or g == math.inf for g in gnorms)):
+        raise AssertionError(f"{tag}: losses {losses}, grad norms {gnorms}, "
+                             f"parameter norms after each step {pnorms}")
+    zeroed = [i for i, g in enumerate(gnorms) if g == math.inf]
+    log(f"[{tag}] parameter norms after each step {pnorms}, all finite; "
+        f"steps whose float32 gradient norm overflowed (the reference's "
+        f"clip: every gradient scaled to 0, the update only the weight "
+        f"decay) {zeroed}")
+
+
 def phase_train_family(torch, dev, card, tag):
     """Full-width training of TRAIN_FAMILIES[``tag``] (float32 master
     weights from seed 0, bf16 compute, act_impl="ppa", cuda_fused, the
     config's remat, adamw), TRAIN_FAMILY_STEPS steps through the
     launcher's ``run_training``, or, for a batch with the frontend's
     extras (whisper's ``enc_feats``), ``make_train_step`` on
-    ``train_batch``: every loss and gradient norm finite, no plain version
-    run, and per step at least layers x (1 + recomputes) launches of the
-    fused kernel, attention layers x (1 + recomputes) of the softmax at
+    ``train_batch``: every loss finite and every gradient norm finite or
+    the reference's float32 overflow (``_check_train_norms``), no plain
+    version run, and per step at least layers x (1 + recomputes)
+    launches of the fused kernel, attention layers x (1 + recomputes) of the softmax at
     each scores' shape and attention layers of its backward there; step
     ms, tokens/s, peak memory; step 0 under an ``OpCosts`` counter (the
     roofline of the step, every kernel launch's reported bytes its
     bound's).  Returns the launches of each kernel and ``path_rows`` of
     this run."""
-    import math
     from repro_torch.configs import get_config
     from repro_torch.kernels import read_counts, reset_counts
     from repro_torch.launch.train import run_training
@@ -2707,8 +2737,7 @@ def phase_train_family(torch, dev, card, tag):
         f"{r.measured_share(med / 1e3):.4f}; {checked} kernel launches, "
         f"bytes as their bounds'; bytes by op "
         f"{collections.Counter(costs.op_bytes).most_common(6)}; card {card}")
-    if len(losses) != steps or not all(map(math.isfinite, losses + gnorms)):
-        raise AssertionError(f"{tag}: losses {losses}, grad norms {gnorms}")
+    _check_train_norms(tag, steps, out)
     if any(plain.values()):
         raise AssertionError(f"plain versions ran in {tag}: {plain}")
     if checked * steps != launched:
@@ -2931,11 +2960,14 @@ def _first_use(backend) -> None:
 
 
 def _card_compiles(nafs, store_dir):
-    """In a spawned worker: the 16-bit deployment tables of ``nafs``
-    compiled on the card's ``TorchSearchBackend`` through
-    ``compile_or_load`` into the store at ``store_dir``; returns {naf:
-    (JSON, seconds, the backend's counts), "compiles": the store's}."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    """The 16-bit deployment tables of ``nafs`` compiled on the card's
+    ``TorchSearchBackend`` through ``compile_or_load`` into the store at
+    ``store_dir`` (in this process or a spawned one); returns {"tables":
+    {naf: (JSON, seconds, the backend's counts)}, "compiles": the
+    store's}."""
+    src = str(Path(__file__).resolve().parent / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
     import torch
     from repro_torch.compiler import TableStore
     from repro_torch.core import searchspace
@@ -2956,8 +2988,7 @@ def _card_compiles(nafs, store_dir):
         torch.cuda.synchronize()
         out[naf] = (tab.to_json(), time.perf_counter() - t0,
                     {k: v - before[k] for k, v in backend.counts.items()})
-    out["compiles"] = store.compiles
-    return out
+    return {"tables": out, "compiles": store.compiles}
 
 
 def phase_compile(torch, dev, card, host):
@@ -2972,41 +3003,26 @@ def phase_compile(torch, dev, card, host):
     import shutil
     from repro_torch.compiler import CompileJob, TableStore, table_identity
     from repro_torch.core import PPATable
-    from repro_torch.core import searchspace
     from repro_torch.models import ppa_table_jobs
     from repro_torch.tables import table_path
 
     jobs = ppa_table_jobs("ppa")
     shutil.rmtree(STORE_DIR, ignore_errors=True)
-    store = TableStore(STORE_DIR)
     t_phase = time.perf_counter()
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
         spawned = pool.apply_async(_card_compiles,
                                    (COMPILE_SPAWNED, str(STORE_DIR)))
-        backend = searchspace.TorchSearchBackend(dev)
-        _first_use(backend)
-        torch.cuda.synchronize()
-        done = {}
-        for naf, cfg, scheme in jobs:
-            if naf in COMPILE_SPAWNED:
-                continue
-            before = dict(backend.counts)
-            t0 = time.perf_counter()
-            tab = store.compile_or_load(naf, cfg, scheme,
-                                        search_backend=backend)
-            torch.cuda.synchronize()
-            done[naf] = (tab, time.perf_counter() - t0,
-                         {k: v - before[k]
-                          for k, v in backend.counts.items()}, "this")
+        here = _card_compiles([naf for naf, _, _ in jobs
+                               if naf not in COMPILE_SPAWNED], str(STORE_DIR))
         worker = spawned.get(timeout=HOST_TIMEOUT_S)
     finally:
         pool.terminate()
         pool.join()
     wall = time.perf_counter() - t_phase
-    for naf in COMPILE_SPAWNED:
-        js, sec, cnt = worker[naf]
-        done[naf] = (PPATable.from_json(js), sec, cnt, "a spawned")
+    done = {naf: (PPATable.from_json(js), sec, cnt, where)
+            for res, where in ((here, "this"), (worker, "a spawned"))
+            for naf, (js, sec, cnt) in res["tables"].items()}
     card_tabs = {}
     for naf, _, _ in jobs:
         tab, sec, cnt, where = done[naf]
@@ -3018,17 +3034,19 @@ def phase_compile(torch, dev, card, host):
             raise AssertionError(f"{naf}-16 compiled on the card differs "
                                  f"from the shipped JSON in {bad}")
         evals = int(tab.stats["candidate_evals"])
-        log(f"[compile] {naf}-16 FQA-O2 on the card (torch, {where} "
-            f"process): {tab.num_segments} segments, "
+        log(f"[compile] {naf}-16 FQA-O2 on the card (torch, in {where} "
+            f"process, one of two compiling on it at once): "
+            f"{tab.num_segments} segments, "
             f"{int(tab.stats['segment_evals'])} segment evaluations, "
             f"{evals} candidate evaluations in {sec:.3f} s = "
             f"{evals / sec:,.0f}/s; {cnt['dispatches']} dispatches "
             f"({cnt['blocks']} blocks, {cnt['lanes']} padded lanes); "
             f"equal to the shipped JSON; card {card}")
-    compiles = store.compiles + worker["compiles"]
+    compiles = here["compiles"] + worker["compiles"]
     if compiles != len(jobs):
         raise AssertionError(f"{compiles} compiles for {len(jobs)} jobs "
                              "into a fresh store")
+    store = TableStore(STORE_DIR)
     if any(store.lookup(CompileJob(*j)) is None for j in jobs):
         raise AssertionError("a table is missing from the store")
     host_tabs, _, line = host.get(jobs, 16)

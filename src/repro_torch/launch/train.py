@@ -47,7 +47,8 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
     """Train ``cfg`` for ``steps`` steps on ``device`` (None: the card).
     ``sched`` overrides the schedule (default: the reference launcher's,
     peak ``lr``, 20 warmup steps).  Returns {"losses", "grad_norms",
-    "stragglers", "final_loss", "step_s"} (``step_s``: each step's
+    "param_norms", "stragglers", "final_loss", "step_s"} (``param_norms``:
+    each step's after its update; ``step_s``: each step's
     seconds, measured around a step that ends with its metrics on the
     host).  ``costs_step``: a step run under an ``OpCosts`` counter (its
     time includes the counting), whose costs come back as "costs"."""
@@ -77,7 +78,7 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
                                                    cfg.act_backend, dev))
     wd = Watchdog(min_deadline_s=600.0)
     logger = MetricsLogger(metrics_path)
-    losses, grad_norms, step_s = [], [], []
+    losses, grad_norms, param_norms, step_s = [], [], [], []
     costs = None
 
     for step in range(start, steps):
@@ -93,6 +94,7 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         grad_norms.append(float(metrics["grad_norm"]))
+        param_norms.append(float(metrics["param_norm"]))
         if step % log_every == 0 or step == steps - 1:
             logger.log(step, **metrics)
             # the metrics themselves: the logger's record holds None for a
@@ -110,7 +112,7 @@ def run_training(cfg, *, steps: int, ckpt_dir: str, resume: str = "auto",
         save(ckpt_dir, steps, (params, tstate),
              extra={"next_step": steps, "loss": losses[-1]})
     return {"losses": losses, "grad_norms": grad_norms,
-            "stragglers": wd.stragglers,
+            "param_norms": param_norms, "stragglers": wd.stragglers,
             "final_loss": losses[-1] if losses else None, "step_s": step_s,
             "costs": costs}
 

@@ -52,30 +52,9 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(sq))
 
 
-#: the scale of ``clip_grads``'s second sum: every finite float32 times
-#: 2^-64 is below 2^64, so its square is finite
-_NORM_SCALE = 2.0 ** -64
-
-
-def _unless_overflowed(grads, n: torch.Tensor) -> torch.Tensor:
-    """``n`` (``global_norm(grads)``), or where its float32 sum of squares
-    overflowed (a norm beyond about 1.8e19: a deep model's gradients at its
-    random init) the same norm of the leaves scaled by 2^-64, scaled back.
-    That one is finite, and exact but for the squares of entries below 2,
-    which the scale rounds away: their sum is at most four times their
-    count, against a norm beyond 1.8e19.  Off a mesh only: on one, the
-    second sum would all-reduce every ``Partial`` gradient a second time."""
-    xs = [x.to(torch.float32) for x in leaves(grads)]
-    if not xs or any(is_dtensor(x) for x in xs):
-        return n
-    big = torch.sqrt(sum(torch.sum(torch.square(x * _NORM_SCALE))
-                         for x in xs)) / _NORM_SCALE
-    return torch.where(torch.isfinite(n), n, big)
-
-
 @torch.no_grad()
 def clip_grads(grads, max_norm: float):
-    n = _unless_overflowed(grads, global_norm(grads))
+    n = global_norm(grads)
     scale = torch.clamp_max(_f32(n, max_norm) / torch.clamp_min(n, 1e-9),
                             1.0)
     return map_tree(lambda g: (g.to(torch.float32) * scale).to(g.dtype),

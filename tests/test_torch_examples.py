@@ -15,6 +15,7 @@ tables, and every file either example writes goes to ``tmp_path``:
 
 import ast
 import importlib.util
+import os
 import sys
 from pathlib import Path
 
@@ -54,17 +55,67 @@ def ref_store():
     set_default_store(prev)
 
 
+#: paths under artifacts/ that this process wrote, created, removed or
+#: touched while a test watched (``artifacts_unchanged``)
+ARTIFACTS = REPO / "artifacts"
+_TOUCHED = []
+_WATCHING = [False]
+_WRITE_FLAGS = (os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_TRUNC
+                | os.O_APPEND)
+_PATH_EVENTS = {"os.utime", "os.rename", "os.remove", "os.rmdir",
+                "os.mkdir", "os.truncate", "os.chmod", "os.link",
+                "os.symlink"}
+
+
+def _audit(event, args):
+    if not _WATCHING[0]:
+        return
+    if event == "open":
+        path, mode, flags = args
+        if not ((isinstance(mode, str) and any(c in mode for c in "wax+"))
+                or (isinstance(flags, int) and flags & _WRITE_FLAGS)):
+            return
+        paths = (path,)
+    elif event in _PATH_EVENTS:
+        paths = args[:2]
+    else:
+        return
+    for p in paths:
+        if isinstance(p, (str, bytes, os.PathLike)):
+            full = os.path.abspath(os.fsdecode(p))
+            if full.startswith(str(ARTIFACTS) + os.sep):
+                _TOUCHED.append(full)
+
+
+sys.addaudithook(_audit)
+
+
 @pytest.fixture
 def artifacts_unchanged():
-    # every path under artifacts/ and each file's bytes: the reference's
-    # store refreshes a file's mtime on each disk hit (its LRU), which
-    # tests of other files running beside this one do
+    """Nothing under artifacts/ is added, removed or modified during the
+    test: each file's mtime as it was.  The one change excused is an mtime
+    refreshed by another process on a file whose inode and bytes are as
+    they were: the stores' LRU (``os.utime`` on a disk hit) in tests of
+    other files running beside this one.  This process's own writes and
+    touches there are caught by an audit hook, so an example that touches
+    or rewrites a file in place still fails the check."""
     def snap():
-        return sorted((str(p), p.read_bytes() if p.is_file() else None)
-                      for p in (REPO / "artifacts").rglob("*"))
+        return {str(p): (p.stat().st_ino, p.stat().st_mtime_ns,
+                         p.read_bytes() if p.is_file() else None)
+                for p in ARTIFACTS.rglob("*")}
     before = snap()
-    yield
-    assert snap() == before
+    _TOUCHED.clear()
+    _WATCHING[0] = True
+    try:
+        yield
+    finally:
+        _WATCHING[0] = False
+    after = snap()
+    assert sorted(after) == sorted(before)
+    assert not _TOUCHED, f"the test wrote under artifacts/: {_TOUCHED}"
+    changed = [p for p in before if after[p][1] != before[p][1]]
+    assert all(after[p][0] == before[p][0] and after[p][2] == before[p][2]
+               for p in changed), changed
 
 
 def _load(name: str):
