@@ -158,22 +158,34 @@ Phases (any failure exits non-zero and prints no result line):
             0.02) of (256, 6144): as serve_whisper
 22. parity_vlm  internvl at full width, 2 layers, float32, the vision
             prefix before each prompt: the parity phase's arms and controls
-22b. train_hybrid, train_rwkv, train_whisper, train_moe  training at
-            full width (float32 master weights from seed 0, bf16 compute,
-            act_impl="ppa", cuda_fused, the config's remat "dots", adamw,
-            4 steps): hymba-1.5b, all 32 layers, batch 2 x seq 2048 (its
-            windows of 1024 mask; the softmax backward on the block path
-            at (2, 5, 5, 2048, 2048)); rwkv6-3b, all 32 layers, 4 x 512
-            (the decays through the fused kernel in the chunked scans
-            under checkpoint; no softmax); whisper-medium, 24 + 24 layers,
-            4 x 512 decoder tokens with ``enc_feats`` (4, 1500, 1024)
-            drawn as the serving launcher draws a request's
+22a. serve_qwen2, parity_qwen2, serve_qwen3, parity_qwen3, serve_nemo,
+            parity_nemo  full-width qwen2-7b (28 layers, GQA 28 : 4, QKV
+            bias, vocab 152,064), qwen3-14b (40 layers, 40 : 8, qk-norm,
+            vocab 151,936) and mistral-nemo-12b (40 layers, 32 : 8, queries
+            of 4096 against a d_model of 5120, vocab 131,072) as serve_moe
+            is served (``DENSE_ARCHS``), each followed by the parity phase
+            on its cut of 2 layers, the biases and qk-norm scales drawn at
+            random
+22b. train_hybrid, train_rwkv, train_whisper, train_moe, train_vlm
+            training at full width (float32 master weights from seed 0,
+            bf16 compute, act_impl="ppa", cuda_fused, the config's remat
+            "dots", adamw, 4 steps): hymba-1.5b cut to 1 layer a stage
+            (its 3 global layers and one of each windowed stage), batch 2
+            x seq 2048 (its windows of 1024 mask; the softmax backward on
+            the block path at (2, 5, 5, 2048, 2048)); rwkv6-3b cut to 8
+            layers, 4 x 512 (the decays through the fused kernel in the
+            chunked scans under checkpoint; no softmax); whisper-medium,
+            24 + 24 layers, 4 x 512 decoder tokens with ``enc_feats`` (4,
+            1500, 1024) drawn as the serving launcher draws a request's
             (``train_batch``, through ``make_train_step``; the block path
             at the encoder's (4, 16, 1, 1500, 1500) and the cross
             attention's (4, 16, 1, 512, 1500)); moonshot-v1-16b-a3b cut
-            to 2 dense and 2 MoE layers of 64 experts, 4 x 512; the others
-            through ``launch/train.py::run_training``.  Each: every loss
-            and parameter norm finite, every gradient norm finite or inf
+            to 2 dense and 2 MoE layers of 64 experts, 4 x 512;
+            internvl2-26b cut to 2 layers, 4 x 512 text tokens after its
+            256 vision tokens (``vision_embeds`` through ``train_batch``:
+            the softmax and its backward at (4, 8, 6, 768, 768)); the
+            others through ``launch/train.py::run_training``.  Each: every
+            loss and parameter norm finite, every gradient norm finite or inf
             as the reference's clip overflows (its float32 sum of
             squares; whisper's and hymba's at their random init: the
             update is then the weight decay only), no plain version run,
@@ -184,10 +196,11 @@ Phases (any failure exits non-zero and prints no result line):
             memory; step 0 counted under ``OpCosts`` (its roofline, every
             launch's reported bytes its bound's); then ``path_rows``
             under the masks the path's attention used
-22c. train_parity_hybrid, _rwkv, _whisper, _moe  the train parity phase
-            on each family at its serving parity's depth (hymba's first
-            two stages of one layer, rwkv 2 layers, whisper 1 + 1,
-            moonshot 1 dense + 1 MoE), float32, its train phase's batch:
+22c. train_parity_hybrid, _rwkv, _whisper, _moe, _vlm  the train parity
+            phase on each family at its serving parity's depth (hymba's
+            first two stages of one layer, rwkv 2 layers, whisper 1 + 1,
+            moonshot 1 dense + 1 MoE, internvl 2 layers), float32, its
+            train phase's batch:
             cuda_int equal to cuda_fused, each within the train parity
             limits of ref, and each control beyond them: the moved
             softmax, or on rwkv the decay table's outputs moved by a
@@ -271,9 +284,10 @@ Phases (any failure exits non-zero and prints no result line):
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
 1 to 4096 scores, and times it.  After each of serve, serve_int, train,
-serve_moe, flash, serve_hybrid, serve_rwkv, serve_whisper, serve_vlm and
-the four families' train phases, every input shape at which that run
-launched the integer, fused or softmax kernel or the softmax's backward
+serve_moe, flash, serve_hybrid, serve_rwkv, serve_whisper, serve_vlm, the
+three dense serves and the five families' train phases, every input shape
+at which that run launched the integer, fused or softmax kernel or the
+softmax's backward
 (the fused kernel's by dtype, table and gate too: ``launched_shapes``) is
 held to the plain version and timed beside its bound (``path_rows``), and
 its row in the kernels line carries those launches (``launches_by_path``
@@ -335,6 +349,23 @@ SOFTMAX_BWD_SHAPES = {"train": (TRAIN_BATCH, 8, 2, TRAIN_SEQ, TRAIN_SEQ),
 MOE_ARCH = "moonshot-v1-16b-a3b"
 HYBRID_ARCH, RWKV_ARCH = "hymba-1.5b", "rwkv6-3b"
 WHISPER_ARCH, VLM_ARCH = "whisper-medium", "internvl2-26b"
+# qwen3-14b's parity limit.  Its qk-norm bounds every score, and no
+# softmax control moves its logits by PARITY_LIMIT of the largest: on the
+# cut of 2 layers the kernels' gap was 3.3e-3 and the controls beyond the
+# bound 1.5e-2 to 2.9e-2 against a limit of 2.85e-2, and at 1 to 6 layers,
+# with a bf16 or a float32 cache, with the norms random or at 1, +-1e-5
+# stayed at 1.1e-3 to 1.6e-2 (scripts/torch_parity_depth.py --arch
+# qwen3-14b, on an NVIDIA H100 80GB HBM3 at 700.00 W).  A quarter of
+# PARITY_LIMIT lies a factor of about 2.2 from both the kernels' gap and
+# the least control.
+QWEN3_PARITY_LIMIT = PARITY_LIMIT / 4
+# the dense configs served at full width, each with its parity on a cut of
+# 2 layers, by phase name: (arch, parity limit).  GQA groups of 7, 5 and
+# 4; qwen2's QKV bias, qwen3's qk-norm, mistral-nemo's query width of 4096
+# against a d_model of 5120
+DENSE_ARCHS = {"qwen2": ("qwen2-7b", PARITY_LIMIT),
+               "qwen3": ("qwen3-14b", QWEN3_PARITY_LIMIT),
+               "nemo": ("mistral-nemo-12b", PARITY_LIMIT)}
 # whisper's parity keeps one encoder and one decoder layer, its decode
 # cache in float32.  At the random init its attention is nearly hard
 # (scores of std about 64) over 1500 frames, and two layers each move the
@@ -354,7 +385,8 @@ GATE_TABLES = {"silu": "sigmoid_wide", "gelu": "gelu_inner"}
 # parity limit from a softmax move within the kernel's bound: at all five
 # stages the +-1e-6 control moved the logits by 5.1 of 4.0 and the
 # kernels' summation order by 0.18, against a limit of 0.016; at one stage
-# no control exceeds the limit (scripts/torch_hybrid_parity_depth.py).
+# no control exceeds the limit (scripts/torch_parity_depth.py --arch
+# hymba-1.5b --stages 1 2 3 5).
 HYBRID_PARITY_STAGES = 2
 # Flash attention's exponentials, float32 into the fused kernel without
 # the gate on the exp_neg table: a chunk's scores (B, Hk, G, T, chunk) and
@@ -1958,11 +1990,43 @@ def _moved_softmax(torch, dev, softmax, d, seed: int = 2):
     return fn
 
 
+def _randomize_attn(torch, dev, tree, seed: int = 3):
+    """``tree`` with its attention biases (``bq``, ``bk``, ``bv``) drawn
+    N(0, 0.5) and its qk-norm scales (``q_norm``, ``k_norm``) U(0.5, 1.5)
+    from a generator on the card seeded with ``seed``, as
+    ``tests/test_torch_attention_options.py::_randomize`` draws them on
+    the CPU: they initialise to 0 and 1, which leave the bias and norm
+    paths untested.  Returns how many leaves it drew."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    drawn = 0
+
+    def walk(node):
+        nonlocal drawn
+        for k, v in node.items():
+            if k in ("bq", "bk", "bv"):
+                node[k] = torch.randn(v.shape, generator=gen, device=dev,
+                                      dtype=v.dtype) * 0.5
+                drawn += 1
+            elif k in ("q_norm", "k_norm"):
+                v["scale"] = torch.rand(v["scale"].shape, generator=gen,
+                                        device=dev,
+                                        dtype=v["scale"].dtype) + 0.5
+                drawn += 1
+            elif isinstance(v, dict):
+                walk(v)
+    walk(tree)
+    return drawn
+
+
 def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
-                 tag="parity", stages=None, cache_dtype="bfloat16"):
+                 tag="parity", stages=None, cache_dtype="bfloat16",
+                 rel_limit=PARITY_LIMIT):
     """The three arms and the controls on ``arch`` at full width, each
     stage cut to ``per_stage`` layers and, with ``stages``, only the first
-    ``stages`` stages kept, float32, the decode cache in ``cache_dtype``.
+    ``stages`` stages kept, float32, the decode cache in ``cache_dtype``,
+    the logit gap held to ``rel_limit`` of the largest logit, the
+    attention biases and qk-norm scales drawn at random
+    (``_randomize_attn``), the same parameters in every arm.
     An attention-free model (rwkv) runs no softmax, and the fused kernel is
     exact: there the arms must be equal bit for bit, and the softmax
     controls do not apply."""
@@ -1978,8 +2042,9 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
     cfg = _cut(get_config(arch), per_stage).replace(
         act_impl="ppa", compute_dtype="float32")
     cfg = cfg.replace(stages=cfg.stages[:stages])
-    params = prepare_params(
-        init_params(param_specs(cfg), 0, device=dev), cfg)
+    params = init_params(param_specs(cfg), 0, device=dev)
+    drawn = _randomize_attn(torch, dev, params)
+    params = prepare_params(params, cfg)
     rng = np.random.default_rng(1)
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (4, 64)),
                                        dtype=torch.int32, device=dev)}
@@ -2054,13 +2119,14 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
     # some of the model's quantized values by one step of their grid: silu
     # table inputs (counted above) by 2^-w_in = 2^-8, bf16 cache entries by
     # one unit in the last place, 2^-8 to 2^-7 of their value.  The logits
-    # are held to PARITY_LIMIT of their largest magnitude.  Nothing here
-    # bounds the model's gain from one quantized value to a logit, so the
-    # controls calibrate the limit: each softmax moved beyond SOFTMAX_ATOL
-    # must exceed it.  On an H100 the kernels gave 3.97e-3 against a limit
-    # of 1.93e-2, the controls 5.4e-2 to 9.2e-2 beyond the bound and 2.1e-2
-    # at its edge (PERF.md): the limit is tighter than the bound's worst
-    # case, and looser than the kernels' gap by a factor of five.
+    # are held to ``rel_limit`` (PARITY_LIMIT; qwen3's a quarter of it) of
+    # their largest magnitude.  Nothing here bounds the model's gain from
+    # one quantized value to a logit, so the controls calibrate the limit:
+    # each softmax moved beyond SOFTMAX_ATOL must exceed it.  On an H100
+    # the kernels gave 3.97e-3 against a limit of 1.93e-2, the controls
+    # 5.4e-2 to 9.2e-2 beyond the bound and 2.1e-2 at its edge (PERF.md):
+    # the limit is tighter than the bound's worst case, and looser than the
+    # kernels' gap by a factor of five.
     if not attn:
         unequal = {p: r for p, r in report.items()
                    if r["gap"] != 0.0 or r["flips"] != 0}
@@ -2076,7 +2142,7 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
     fu = report["cuda_int|cuda_fused"]
     if fu["gap"] != 0.0 or fu["flips"] != 0:
         raise AssertionError(f"the fused kernel moved the logits: {fu}")
-    limit = scale * PARITY_LIMIT
+    limit = scale * rel_limit
     gaps = {name: float((runs["ref"][1] - lc).abs().max())
             for name, lc in controls.items()}
     for name, gap in gaps.items():
@@ -2085,7 +2151,7 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
     for pair in ("ref|cuda_int", "ref|cuda_fused"):
         if not report[pair]["gap"] <= limit:
             raise AssertionError(f"{pair}: logit gap {report[pair]['gap']}"
-                                 f" > {PARITY_LIMIT} x {scale} = {limit}")
+                                 f" > {rel_limit} x {scale} = {limit}")
     for name, d in PARITY_CONTROLS.items():
         if (d is None or d > SOFTMAX_ATOL) and not gaps[name] > limit:
             raise AssertionError(
@@ -2098,10 +2164,12 @@ def phase_parity(torch, dev, arch="internlm2-1.8b", per_stage=2,
         + (f" + {cfg.enc_layers}L encoder" if cfg.enc_layers else "")
         + (f" after {cfg.vision_tokens} vision tokens"
            if cfg.vision_tokens else "")
+        + (f", {drawn} bias and qk-norm leaves drawn at random"
+           if drawn else "")
         + f" float32, a {cache_dtype} cache: prefill + 8 greedy decode "
         f"steps, equal tokens in all three arms; cuda_int vs cuda_fused "
         f"logits equal (the fused kernel is exact); ref vs either "
-        f"{report['ref|cuda_int']['gap']:.3e} <= {PARITY_LIMIT} x "
+        f"{report['ref|cuda_int']['gap']:.3e} <= {rel_limit} x "
         f"max |logit| = {limit:.3e} (the softmax kernel's summation order); "
         f"every control beyond {SOFTMAX_ATOL} rejected")
 
@@ -2341,7 +2409,9 @@ def train_batch(cfg, data, step: int, rng):
     (``data``, a ``SyntheticLM``) and, where the config has them, each
     row's stub frontend outputs drawn from ``rng`` as the serving launcher
     draws a request's (``launch.serve.request_extras``: whisper's frame
-    embeddings N(0, 0.1) of (enc_seq, d_model)), stacked; numpy arrays."""
+    embeddings N(0, 0.1) of (enc_seq, d_model), internvl's patch
+    embeddings N(0, 0.02) of (vision_tokens, d_model)), stacked; numpy
+    arrays."""
     import numpy as np
     from repro_torch.launch.serve import request_extras
 
@@ -2516,28 +2586,36 @@ def phase_train_resume(torch, dev):
 # The families' train phases: (arch, batch, seq, depth: None for every
 # layer, or the layers each stage is cut to), TRAIN_FAMILY_STEPS steps of
 # adamw each.  hymba's sequence of 2048 makes its windows of 1024 mask.
+# hymba (5 stages of 1 layer: its 3 global layers and one of each windowed
+# stage) and rwkv (8 layers) are cut for time: their chunked scans take a
+# step's time layer by layer, and every kernel shape they launch comes from
+# width, batch and sequence, which stay.  internvl's 48 layers of 6144
+# would want about 320 GB under adamw; 2 layers want about 31 GB.
 TRAIN_FAMILY_STEPS = 4
 TRAIN_FAMILIES = {
-    "train_hybrid": (HYBRID_ARCH, 2, 2048, None),
-    "train_rwkv": (RWKV_ARCH, 4, 512, None),
+    "train_hybrid": (HYBRID_ARCH, 2, 2048, 1),
+    "train_rwkv": (RWKV_ARCH, 4, 512, 8),
     "train_whisper": (WHISPER_ARCH, 4, 512, None),
     "train_moe": (MOE_ARCH, 4, 512, 2),
+    "train_vlm": (VLM_ARCH, 4, 512, 2),
 }
 
 
 def attention_rows(cfg, batch: int, seq: int):
     """{scores' shape (B, Hk, G, T, S): attention layers that take it} of
-    one forward of ``cfg`` at ``batch`` x ``seq``: the decoder's
-    self-attention, whisper's cross attention to its encoder's frames and
-    the encoder's self-attention."""
+    one forward of ``cfg`` at ``batch`` x ``seq`` text tokens: the
+    decoder's self-attention over the vision prefix and the text
+    (vision_tokens + seq rows), whisper's cross attention to its
+    encoder's frames and the encoder's self-attention."""
     g = cfg.n_q // cfg.n_kv
+    t = cfg.vision_tokens + seq
     out = collections.Counter()
     for st in cfg.stages:
         if st.kind == "rwkv":
             continue
-        out[(batch, cfg.n_kv, g, seq, seq)] += st.n_layers
+        out[(batch, cfg.n_kv, g, t, t)] += st.n_layers
         if st.kind == "xdec":
-            out[(batch, cfg.n_kv, g, seq, cfg.enc_seq)] += st.n_layers
+            out[(batch, cfg.n_kv, g, t, cfg.enc_seq)] += st.n_layers
     if cfg.enc_layers:
         out[(batch, cfg.n_kv, g, cfg.enc_seq, cfg.enc_seq)] += cfg.enc_layers
     return out
@@ -2613,6 +2691,7 @@ TRAIN_PARITY_FAMILIES = {
     "train_parity_rwkv": (RWKV_ARCH, 2, None),
     "train_parity_whisper": (WHISPER_ARCH, WHISPER_PARITY_LAYERS, None),
     "train_parity_moe": (MOE_ARCH, 1, None),
+    "train_parity_vlm": (VLM_ARCH, 2, None),
 }
 
 
@@ -2645,12 +2724,13 @@ def phase_train_family(torch, dev, card, tag):
     weights from seed 0, bf16 compute, act_impl="ppa", cuda_fused, the
     config's remat, adamw), TRAIN_FAMILY_STEPS steps through the
     launcher's ``run_training``, or, for a batch with the frontend's
-    extras (whisper's ``enc_feats``), ``make_train_step`` on
-    ``train_batch``: every loss finite and every gradient norm finite or
-    the reference's float32 overflow (``_check_train_norms``), no plain
-    version run, and per step at least layers x (1 + recomputes)
-    launches of the fused kernel, attention layers x (1 + recomputes) of the softmax at
-    each scores' shape and attention layers of its backward there; step
+    extras (whisper's ``enc_feats``, internvl's ``vision_embeds``),
+    ``make_train_step`` on ``train_batch``: every loss finite and every
+    gradient norm finite or the reference's float32 overflow
+    (``_check_train_norms``), no plain version run, and per step at least
+    layers x (1 + recomputes) launches of the fused kernel, attention
+    layers x (1 + recomputes) of the softmax at each scores' shape and
+    attention layers of its backward there; step
     ms, tokens/s, peak memory; step 0 under an ``OpCosts`` counter (the
     roofline of the step, every kernel launch's reported bytes its
     bound's).  Returns the launches of each kernel and ``path_rows`` of
@@ -2699,13 +2779,21 @@ def phase_train_family(torch, dev, card, tag):
                     for shape, n in rows_at.items()})
     step_ms = [t * 1e3 for t in out["step_s"]]
     med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    # the tokens that take the loss; a vision prefix's rows run through
+    # every layer beside them, so the model's FLOPs count those too
     tokens = batch * seq
+    rows = batch * (cfg.vision_tokens + seq)
     stages = [(st.kind, st.n_layers) + ((f"window {st.window}",)
                                         if st.window else ())
               + (("moe",) if st.moe else ()) for st in cfg.stages]
     front = (f", encoder {cfg.enc_layers}L on {cfg.enc_seq} frames "
              f"(enc_feats ({batch}, {cfg.enc_seq}, {cfg.d_model}))"
              if cfg.enc_layers else "")
+    if cfg.vision_tokens:
+        front += (f", {cfg.vision_tokens} vision tokens before the text "
+                  f"(vision_embeds ({batch}, {cfg.vision_tokens}, "
+                  f"{cfg.d_model}); sequences of {cfg.vision_tokens + seq} "
+                  "rows)")
     log(f"[{tag}] {arch} {cfg.n_layers}L {stages}{front} d_model "
         f"{cfg.d_model} vocab {cfg.vocab}, float32 master weights, bf16 "
         f"compute, act_impl=ppa act_backend={cfg.act_backend} "
@@ -2713,8 +2801,11 @@ def phase_train_family(torch, dev, card, tag):
         f"{entry}: losses {losses}; grad norms before clipping "
         f"{[f'{g:.3e}' for g in gnorms]}")
     log(f"[{tag}] step ms {[round(t, 2) for t in step_ms]}; median of steps"
-        f" 2-{steps} {med:.2f} ms = {tokens / med * 1e3:.1f} tokens/s; "
-        f"max_memory_allocated {mem / 2**30:.2f} GiB; card {card}")
+        f" 2-{steps} {med:.2f} ms = {tokens / med * 1e3:.1f} tokens/s "
+        f"over the {seq} text tokens a row that take the loss"
+        + (f" ({rows / med * 1e3:.1f} rows/s over {cfg.vision_tokens + seq})"
+           if rows != tokens else "")
+        + f"; max_memory_allocated {mem / 2**30:.2f} GiB; card {card}")
     log(f"[{tag}] launches {dict((k, c['launches']) for k, c in counts.items() if k != 'ref')}"
         f" by shape {dict((k, v) for k, v in by_shape.items() if k != 'ppa_fused_variants')};"
         f" at least {need} and per scores' shape {need_at} (layers x steps,"
@@ -2729,7 +2820,7 @@ def phase_train_family(torch, dev, card, tag):
     r = analyze_costs(costs, arch=arch, shape=f"train batch {batch} x seq "
                       f"{seq}, adamw", mesh_desc="1 card", chips=1,
                       model_fl=model_flops(active_params(
-                          cfg, param_specs(cfg)), tokens, "train"))
+                          cfg, param_specs(cfg)), rows, "train"))
     log(f"[{tag}] step 0 counted: FLOPs {costs.flops:.6e}, bytes "
         f"{costs.bytes:.6e}; t_compute {r.t_compute * 1e3:.4f} ms, t_memory "
         f"{r.t_memory * 1e3:.4f} ms -> {r.bottleneck}; t_useful "
@@ -3855,6 +3946,12 @@ def phases(run, failed, torch, dev, card, jobs, host):
                              card, VLM_ARCH, "serve_vlm")
     run("parity_vlm", phase_parity, torch, dev, VLM_ARCH, 2,
         "parity_vlm")
+    for name, (arch, limit) in DENSE_ARCHS.items():
+        paths[f"serve_{name}"] = run(f"serve_{name}", phase_serve_full,
+                                     torch, dev, card, arch,
+                                     f"serve_{name}")
+        run(f"parity_{name}", phase_parity, torch, dev, arch, 2,
+            f"parity_{name}", None, "bfloat16", limit)
     _free(torch)
     for tag in TRAIN_FAMILIES:
         paths[tag] = run(tag, phase_train_family, torch, dev, card, tag)

@@ -6,6 +6,10 @@ kimi-k2-1t-a32b.
   carried across: greedy outputs of the port's ``ServeEngine`` equal the
   reference engine's on prompts of mixed lengths.
 * A windowed and a flash variant served by both engines.
+* qwen2-7b, qwen3-14b and mistral-nemo-12b narrowed with their full
+  configs' head ratios (``RATIO_CONFIGS``: GQA groups of 7, 5 and 4, and
+  mistral-nemo's query width n_q x head_dim below d_model), the biases
+  and qk-norm scales drawn at random, served by both engines.
 
 Training, the spec trees and the initializer are in
 ``test_torch_families_train.py``.
@@ -28,11 +32,22 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
+from test_torch_attention_options import _randomize  # noqa: E402
 from test_torch_models import seeded_store  # noqa: E402
 
 NEW_ARCHS = ("qwen2-7b", "qwen3-14b", "mistral-nemo-12b",
              "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b")
 LENS = (5, 9, 14, 3, 11, 7)
+#: each full config narrowed to head_dim 16 with its ratios kept: n_q :
+#: n_kv (the GQA group), n_q x head_dim : d_model and d_ff : d_model
+#: (qwen2-7b 28 : 4, 3584 : 3584, 18944 : 3584; qwen3-14b 40 : 8, 5120 :
+#: 5120, 17408 : 5120; mistral-nemo-12b 32 : 8, 4096 : 5120, 14336 : 5120)
+RATIO_CONFIGS = {
+    "qwen2-7b": dict(n_q=7, n_kv=1, head_dim=16, d_model=112, d_ff=592),
+    "qwen3-14b": dict(n_q=5, n_kv=1, head_dim=16, d_model=80, d_ff=272),
+    "mistral-nemo-12b": dict(n_q=4, n_kv=1, head_dim=16, d_model=80,
+                             d_ff=224),
+}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -62,6 +77,19 @@ def smoke(request):
     return _pair(request.param)
 
 
+def ratio_pair(arch):
+    """``_pair`` of ``arch`` at ``RATIO_CONFIGS[arch]``, the reference's
+    biases and qk-norm scales drawn at random (they initialise to 0 and
+    1)."""
+    rcfg, cfg, rparams = _pair(arch, **RATIO_CONFIGS[arch])
+    return rcfg, cfg, _randomize(rparams, np.random.default_rng(3))
+
+
+@pytest.fixture(scope="module", params=list(RATIO_CONFIGS))
+def ratio(request):
+    return ratio_pair(request.param)
+
+
 def _prompts(vocab):
     rng = np.random.default_rng(0)
     return [rng.integers(0, vocab, n).astype(np.int32) for n in LENS]
@@ -88,6 +116,15 @@ def _serve_both(rcfg, cfg, rparams, store, max_new=6):
 
 def test_smoke_engine_matches_reference_engine(smoke, store):
     rcfg, cfg, rparams = smoke
+    want, got = _serve_both(rcfg, cfg, rparams, store)
+    assert got == want
+
+
+def test_head_ratio_engine_matches_reference_engine(ratio, store):
+    """The full configs' GQA groups and query widths at a narrow width:
+    the port's engine serves the reference engine's greedy tokens."""
+    rcfg, cfg, rparams = ratio
+    assert cfg.n_q * cfg.head_dim <= cfg.d_model
     want, got = _serve_both(rcfg, cfg, rparams, store)
     assert got == want
 

@@ -7,6 +7,9 @@ its parameter specs.
   gradients against ``jax.value_and_grad`` of the reference's (the tables
   aligned by ``TableAlign``; remat off on both sides, as recompute
   evaluates the tables again in the backward's order).
+* The same on qwen2-7b, qwen3-14b and mistral-nemo-12b narrowed with
+  their full configs' head ratios, random biases and qk-norm scales
+  (``test_torch_families.RATIO_CONFIGS``).
 * Recompute gives the same MoE gradients as none.
 * Each full config: the port's spec tree equals the reference's in shape,
   axes and initializer, and in ``count_params``, without allocating.
@@ -35,7 +38,8 @@ from repro_torch.models import (P, init_params, loss_fn,  # noqa: E402
 from repro_torch.tree import leaves_with_path, map_tree  # noqa: E402
 
 from test_torch_attention_options import TableAlign  # noqa: E402
-from test_torch_families import NEW_ARCHS, _pair  # noqa: E402
+from test_torch_families import (NEW_ARCHS, RATIO_CONFIGS,  # noqa: E402
+                                 _pair, ratio_pair)
 from test_torch_models import seeded_store  # noqa: E402
 from test_torch_train import STEP_GRAD_REL, STEP_LOSS_RTOL  # noqa: E402
 
@@ -104,13 +108,24 @@ def reference(smoke, store):
                            _batch(cfg.vocab), store)
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
-def test_smoke_loss_aux_and_grads_match_reference(smoke, reference, backend,
-                                                  monkeypatch):
-    """On every backend (the kernel backends' plain versions: ``_STE`` and
-    ``_SoftmaxSTE``, the card's autograd path), against one recording of
-    the reference."""
-    _, cfg, rparams = smoke
+@pytest.fixture(scope="module", params=list(RATIO_CONFIGS))
+def ratio(request):
+    return ratio_pair(request.param)
+
+
+@pytest.fixture(scope="module")
+def ratio_reference(ratio, store):
+    rcfg, cfg, rparams = ratio
+    return reference_grads(rcfg.replace(remat="none"), rparams,
+                           _batch(cfg.vocab), store)
+
+
+def _check_grads(pair, reference, backend, monkeypatch):
+    """``pair``'s port ``loss_fn`` on ``backend`` against ``reference``
+    (``reference_grads``), remat off: loss within STEP_LOSS_RTOL, aux
+    within AUX_RTOL, each gradient leaf within STEP_GRAD_REL of its
+    largest magnitude."""
+    _, cfg, rparams = pair
     cfg = cfg.replace(remat="none")
     (rloss, raux, rflat), points = reference
     align = TableAlign(monkeypatch, backend, points)
@@ -130,6 +145,24 @@ def test_smoke_loss_aux_and_grads_match_reference(smoke, reference, backend,
             continue
         err = float(np.abs(p.grad.numpy() - want).max())
         assert err <= STEP_GRAD_REL * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_smoke_loss_aux_and_grads_match_reference(smoke, reference, backend,
+                                                  monkeypatch):
+    """On every backend (the kernel backends' plain versions: ``_STE`` and
+    ``_SoftmaxSTE``, the card's autograd path), against one recording of
+    the reference."""
+    _check_grads(smoke, reference, backend, monkeypatch)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_head_ratio_loss_and_grads_match_reference(ratio, ratio_reference,
+                                                   backend, monkeypatch):
+    """The full configs' GQA groups (7, 5, 4) and mistral-nemo's query
+    width below d_model at a narrow width, with random biases and qk-norm
+    scales, on every backend against one recording of the reference."""
+    _check_grads(ratio, ratio_reference, backend, monkeypatch)
 
 
 @pytest.mark.parametrize("remat", ["dots", "full"])

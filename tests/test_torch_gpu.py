@@ -26,11 +26,21 @@ SOFTMAX_BWD_REL = 1e-6
 #: a kernel arm's gradient gap to the plain arm, over each leaf's largest
 #: gradient (chip_smoke.py's TRAIN_PARITY_LIMIT)
 TRAIN_PARITY_LIMIT = 2.0 ** -8
-#: the served model's decode shape and a full 4 x 128 prefill group
-FUSED_SHAPES = [(4, 1, 8192), (512, 8192)]
-SOFTMAX_SHAPES = [(4, 8, 2, 1, 512), (4, 8, 2, 128, 128)]
-#: the training scores (batch 4 x seq 512) and a decode row
-TRAIN_SOFTMAX_SHAPES = [(4, 8, 2, 512, 512), (4, 8, 2, 1, 512)]
+#: the served model's decode shape and a full 4 x 128 prefill group; the
+#: MLP gates of qwen2-7b, qwen3-14b and mistral-nemo-12b at decode (d_ff
+#: 18944, 17408, 14336) and internvl2-26b's at a train step (4 x (256 +
+#: 512) rows of 16384)
+FUSED_SHAPES = [(4, 1, 8192), (512, 8192), (4, 1, 18944), (4, 1, 17408),
+                (4, 1, 14336), (4, 768, 16384)]
+#: the decode scores of internlm2 and of the GQA groups of 7, 5 and 4
+#: (qwen2-7b, qwen3-14b, mistral-nemo-12b), a prefill group, and
+#: internvl2-26b's train scores over its vision prefix and text
+SOFTMAX_SHAPES = [(4, 8, 2, 1, 512), (4, 8, 2, 128, 128), (4, 4, 7, 1, 512),
+                  (4, 8, 5, 1, 512), (4, 8, 4, 1, 512), (4, 8, 6, 768, 768)]
+#: the training scores (batch 4 x seq 512; internvl's 256 + 512 rows) and
+#: a decode row
+TRAIN_SOFTMAX_SHAPES = [(4, 8, 2, 512, 512), (4, 8, 2, 1, 512),
+                        (4, 8, 6, 768, 768)]
 #: both layouts of the warp-per-row path, and the block-per-row path
 ROW_LENGTHS = [1, 31, 33, 512, 1024, 2048, 4096]
 INT32_EXTREMES = [-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1]
