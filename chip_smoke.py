@@ -171,16 +171,17 @@ Phases (any failure exits non-zero and prints no result line):
             bf16 compute, act_impl="ppa", cuda_fused, the config's remat
             "dots", adamw, 4 steps): hymba-1.5b cut to 1 layer a stage
             (its 3 global layers and one of each windowed stage), batch 2
-            x seq 2048 (its windows of 1024 mask; the softmax backward on
-            the block path at (2, 5, 5, 2048, 2048)); rwkv6-3b cut to 8
-            layers, 4 x 512 (the decays through the fused kernel in the
-            chunked scans under checkpoint; no softmax); whisper-medium,
+            x seq 2048 (its windows of 1024 mask; the softmax backward
+            across 4 warps a row at (2, 5, 5, 2048, 2048)); rwkv6-3b cut
+            to 8 layers, 4 x 512 (the decays through the fused kernel in
+            the chunked scans under checkpoint; no softmax); whisper-medium,
             24 + 24 layers, 4 x 512 decoder tokens with ``enc_feats`` (4,
             1500, 1024) drawn as the serving launcher draws a request's
-            (``train_batch``, through ``make_train_step``; the block path
-            at the encoder's (4, 16, 1, 1500, 1500) and the cross
-            attention's (4, 16, 1, 512, 1500)); moonshot-v1-16b-a3b cut
-            to 2 dense and 2 MoE layers of 64 experts, 4 x 512;
+            (``train_batch``, through ``make_train_step``; the backward
+            across 4 warps a row at the encoder's (4, 16, 1, 1500, 1500)
+            and the cross attention's (4, 16, 1, 512, 1500));
+            moonshot-v1-16b-a3b cut to 2 dense and 2 MoE layers of 64
+            experts, 4 x 512;
             internvl2-26b cut to 2 layers, 4 x 512 text tokens after its
             256 vision tokens (``vision_embeds`` through ``train_batch``:
             the softmax and its backward at (4, 8, 6, 768, 768)); the
@@ -283,9 +284,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 The kernels phase also holds the softmax backward kernel to its plain
 version (SOFTMAX_BWD_REL) at the training and decode shapes and on rows of
-1 to 4096 scores, and times it.  After each of serve, serve_int, train,
-serve_moe, flash, serve_hybrid, serve_rwkv, serve_whisper, serve_vlm, the
-three dense serves and the five families' train phases, every input shape
+1 to 8196 scores (either side of each layout boundary of its row kernel),
+and times it; the build phase lists each of its entries' registers.  After
+each of serve, serve_int, train, serve_moe, flash, serve_hybrid,
+serve_rwkv, serve_whisper, serve_vlm, the three dense serves and the five
+families' train phases, every input shape
 at which that run launched the integer, fused or softmax kernel or the
 softmax's backward
 (the fused kernel's by dtype, table and gate too: ``launched_shapes``) is
@@ -491,6 +494,25 @@ def ptxas_entries(text: str):
     return {e: props.get(e, {}) for e in entries}
 
 
+def entry_label(mangled: str) -> str:
+    """A kernel entry's name and template arguments from its mangled name,
+    ``_Z22softmax_bwd_row_kernelILi4ELi2EEv...`` -> ``softmax_bwd_row_kernel
+    <4, 2>`` (the mangled name where it is not of that form)."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    end = m.end() + int(m[1])
+    name, rest = mangled[m.end():end], mangled[end:]
+    if not rest.startswith("I"):
+        return name
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+    if not args:
+        return name
+    vals = [("true" if k == "b" and v == "1" else "false" if k == "b"
+             else v) for k, v in re.findall(r"L([a-z])(\d+)E", args[1])]
+    return f"{name}<{', '.join(vals)}>"
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -521,6 +543,14 @@ def phase_build():
             f"{max(pr.get('spill_loads', -1) for pr in entries.values())} "
             f"bytes, registers {min(regs)}-{max(regs)} (entries by count: "
             f"{dict(sorted(collections.Counter(regs).items()))})")
+        for entry, pr in sorted(entries.items(),
+                                key=lambda kv: entry_label(kv[0])):
+            if entry_label(entry).startswith("softmax_bwd_"):
+                log(f"[build] {name}: {entry_label(entry)}: "
+                    f"{pr.get('registers')} registers, stack frame "
+                    f"{pr.get('stack')} bytes, spill stores "
+                    f"{pr.get('spill_stores')} bytes, spill loads "
+                    f"{pr.get('spill_loads')} bytes")
     if bad:
         raise AssertionError(f"entries with a stack frame or spills: {bad}")
 
@@ -906,30 +936,46 @@ def _bwd_err(torch, softmax_ppa, e2, x, g, where):
             SOFTMAX_BWD_REL * float(g.abs().max())), got
 
 
-def _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2):
+def bwd_row_lengths(softmax_ppa):
+    """Row lengths the softmax backward is held at: SOFTMAX_ROW_LENGTHS,
+    768 (internvl's training rows), 1025 (one block a row), and either side
+    of each boundary between the layouts of its row kernel
+    (``softmax_ppa.bwd_route``), 8196 the first row beyond it."""
+    last = {}
+    for n in range(4, 8193, 4):
+        last[softmax_ppa.bwd_route(n, True)] = n
+    edges = {m for n in last.values() for m in (n, n + 4)}
+    return tuple(sorted({*SOFTMAX_ROW_LENGTHS, 768, 1025, *edges}))
+
+
+def _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2, e2_8):
     """The softmax backward kernel within SOFTMAX_BWD_REL of its plain
     version, masked (causal) and not, at the training and decode shapes and
-    on rows of every layout of its two paths, with a three-way tie for a
-    row's max; an all-masked row exactly 0.  Returns the largest
+    on rows of every layout of its paths (``bwd_row_lengths``), with a
+    three-way tie for a row's max, on the table ``e2``; rows of 512 and
+    2048 also on ``e2_8`` (exp2_frac-8: order 1, another entry of the row
+    kernel); an all-masked row exactly 0.  Returns the largest
     difference."""
     cases = []
     for name, shape in SOFTMAX_BWD_SHAPES.items():
         x = torch.randn(shape, generator=gen, device=dev) * 4.0
-        cases += [(name, x, None, None),
-                  (f"{name} masked", x, attention_mask(torch, dev, shape),
-                   (0, 0, 0, 0))]
-    for n in SOFTMAX_ROW_LENGTHS + (1025,):
-        x = torch.randn((16, n), generator=gen, device=dev) * 4.0
-        x[5, :3] = x[5].max() + 1.0
-        where = torch.rand((16, n), generator=gen, device=dev) < 0.7
-        where[3] = False
-        where[5, :3] = True
-        cases += [(f"rows of {n}", x, None, None),
-                  (f"rows of {n} masked", x, where, (3,))]
+        cases += [(name, e2, x, None, None),
+                  (f"{name} masked", e2, x,
+                   attention_mask(torch, dev, shape), (0, 0, 0, 0))]
+    lengths = bwd_row_lengths(softmax_ppa)
+    for tc, tab, ns in ((e2, "", lengths), (e2_8, " 8-bit", (512, 2048))):
+        for n in ns:
+            x = torch.randn((16, n), generator=gen, device=dev) * 4.0
+            x[5, :3] = x[5].max() + 1.0
+            where = torch.rand((16, n), generator=gen, device=dev) < 0.7
+            where[3] = False
+            where[5, :3] = True
+            cases += [(f"rows of {n}{tab}", tc, x, None, None),
+                      (f"rows of {n}{tab} masked", tc, x, where, (3,))]
     err = ratio = 0.0
-    for label, x, where, dead in cases:
+    for label, tc, x, where, dead in cases:
         g = torch.randn(x.shape, generator=gen, device=dev)
-        (d, lim), got = _bwd_err(torch, softmax_ppa, e2, x, g, where)
+        (d, lim), got = _bwd_err(torch, softmax_ppa, tc, x, g, where)
         if not d <= lim:
             raise AssertionError(f"softmax backward kernel vs plain, {label}"
                                  f" {tuple(x.shape)}: {d} > {lim}")
@@ -941,9 +987,9 @@ def _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2):
         f" at most {ratio:.2e} x max |g| <= {SOFTMAX_BWD_REL}, on "
         f"{len(cases)} cases (train {SOFTMAX_BWD_SHAPES['train']} and decode"
         f" {SOFTMAX_BWD_SHAPES['decode']} with and without the attention "
-        f"mask, rows of {', '.join(map(str, SOFTMAX_ROW_LENGTHS + (1025,)))}"
-        " masked and not, with a three-way tie for a row's max); all-masked"
-        " rows exactly 0")
+        f"mask, rows of {', '.join(map(str, lengths))} masked and not, with"
+        " a three-way tie for a row's max; rows of 512 and 2048 on "
+        "exp2_frac-8 too); all-masked rows exactly 0")
     return err
 
 
@@ -977,7 +1023,8 @@ def phase_kernels(torch, dev):
     _check_fused(torch, gen, dev, fused, tcs)
     e2 = tcs[("exp2_frac", 16)]
     sm_err = _check_softmax(torch, gen, dev, softmax_ppa, e2)
-    bwd_err = _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2)
+    bwd_err = _check_softmax_bwd(torch, gen, dev, softmax_ppa, e2,
+                                 tcs[("exp2_frac", 8)])
 
     # ---- timings at the standing shapes; a kernel's own numbers in the
     # kernels line are those at decode, the shape its main path launches

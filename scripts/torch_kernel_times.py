@@ -35,14 +35,15 @@ def main() -> int:
         print("torch_kernel_times: no CUDA device", file=sys.stderr)
         return 2
     src = Path(args.src).resolve()
+    # the tree's package first: chip_smoke then finds it imported
     sys.path[:0] = [str(src), str(ROOT)]
-    import chip_smoke as cs
     import repro_torch
+    if not Path(repro_torch.__file__).resolve().is_relative_to(src):
+        raise RuntimeError(f"repro_torch came from {repro_torch.__file__}")
+    import chip_smoke as cs
     from repro_torch.kernels import build, fused, ppa, softmax_ppa
     from repro_torch.kernels.ops import pack_table
     from repro_torch.tables import load_table
-    if not Path(repro_torch.__file__).resolve().is_relative_to(src):
-        raise RuntimeError(f"repro_torch came from {repro_torch.__file__}")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)

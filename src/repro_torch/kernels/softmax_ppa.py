@@ -29,7 +29,7 @@ from .build import check_cuda_input, get_lib, raise_on_error, stream_of
 from .fused import condition_f32, eval_ref
 from .local import is_dtensor, no_storage, on_local
 
-__all__ = ["bwd_counts", "bwd_shape_counts", "counts", "route",
+__all__ = ["bwd_counts", "bwd_route", "bwd_shape_counts", "counts", "route",
            "shape_counts", "softmax_ppa", "softmax_ppa_bwd",
            "softmax_ppa_bwd_plain", "softmax_ppa_plain"]
 
@@ -46,6 +46,13 @@ _CLAMP = -24.0  # 2^-24 is below every table's output ULP
 _MAX_DIMS = 8   # leading dims the kernel's mask index takes (SOFTMAX_MAX_DIMS)
 _LANE_VALUES = 64   # scores a lane holds in registers on the warp path
 _BWD_LANE_VALUES = 32   # the backward's: it holds x, g and e (3 a score)
+# The backward's row kernel: one row across up to 16 warps, each lane
+# holding up to 4 float4 runs of x and of g (16 scores); only the entries
+# of 4 runs a lane take blocks of 512 threads, the others of 256, so 8
+# warps a row (csrc/softmax_ppa.cu::BwdRowPlan)
+_BWD_WARPS = (1, 2, 4, 8, 16)
+_BWD_RUNS = 4
+_BWD_THREADS = {1: 256, 2: 256, 3: 256, 4: 512}
 _c = ctypes.c_void_p
 
 
@@ -91,6 +98,25 @@ def route(n: int, aligned: bool, lane_values: int = _LANE_VALUES
     return (vec, items) if vec * items <= lane_values else (0, 0)
 
 
+def bwd_route(n: int, aligned: bool) -> Tuple[int, int, int]:
+    """The backward's layout for rows of ``n`` scores, ``(warps, vec,
+    items)``.  A row of a multiple of 4 scores, up to 8192, whose x, g and
+    dx start 16-byte aligned lies across ``warps`` warps of a block, each
+    lane holding ``items`` float4 runs (``vec`` 4): of the layouts within
+    the caps (warps 1, 2, 4, 8 or 16, at most _BWD_THREADS[k] / 32; 1 to 4
+    runs a lane) that cover the row, the one with the fewest idle runs,
+    then the fewest warps.  Other rows take the earlier paths, ``(0,
+    *route(n, aligned, 32))``."""
+    if n % 4 == 0 and aligned and 0 < n <= 128 * _BWD_WARPS[-1] * _BWD_RUNS:
+        runs = n // 4
+        _, warps, items = min(
+            (32 * w * k - runs, w, k) for w in _BWD_WARPS
+            for k in range(1, _BWD_RUNS + 1)
+            if 32 * w * k >= runs and 32 * w <= _BWD_THREADS[k])
+        return warps, 4, items
+    return (0, *route(n, aligned, _BWD_LANE_VALUES))
+
+
 def _mask_index(mask: torch.Tensor, lead: int):
     """(inner, size, stride) of each leading dim along which the mask
     moves: the row index divided by ``inner``, modulo ``size``, steps the
@@ -120,16 +146,19 @@ def _lib() -> ctypes.CDLL:
     if lib.softmax_ppa_launch.argtypes is None:
         lib.softmax_ppa_launch.argtypes = _ARGTYPES
         lib.softmax_ppa_launch.restype = ctypes.c_int
-        lib.softmax_ppa_bwd_launch.argtypes = [_c] + _ARGTYPES
+        # the backward takes the row kernel's warps before vec and items
+        lib.softmax_ppa_bwd_launch.argtypes = (
+            [_c] + _ARGTYPES[:10] + [ctypes.c_int] + _ARGTYPES[10:])
         lib.softmax_ppa_bwd_launch.restype = ctypes.c_int
     return lib
 
 
 def _launch_args(x: torch.Tensor, tc, where: Optional[torch.Tensor],
-                 what: str, lane_values: int, *others: torch.Tensor):
+                 what: str, layout: Callable[[int, bool], tuple],
+                 *others: torch.Tensor):
     """Check a launch's inputs; return the output and the arguments both
     launch functions take after their inputs (mask, mask index, output,
-    rows, row length, layout, table, stream)."""
+    rows, row length, ``layout(n, aligned)``, table, stream)."""
     if tc.naf != "exp2_frac":
         raise ValueError(f"softmax needs the exp2_frac table, got {tc.naf}")
     for t in (x, *others):
@@ -160,13 +189,13 @@ def _launch_args(x: torch.Tensor, tc, where: Optional[torch.Tensor],
     inner, size, stride = ((ctypes.c_longlong * _MAX_DIMS)(*c) for c in cols)
     out = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, out, *others))
-    vec, items = route(n, aligned, lane_values)
     plan = (ctypes.c_int * len(tc.plan_ints))(*tc.plan_ints)
     # each ctypes.cast keeps its array alive as long as the pointer
     return out, (None if mask is None else mask.data_ptr(), len(dims),
                  ctypes.cast(inner, _c), ctypes.cast(size, _c),
                  ctypes.cast(stride, _c), col_stride, out.data_ptr(), rows,
-                 n, vec, items, tc.idx_lut.data_ptr(), tc.coefs.data_ptr(),
+                 n, *layout(n, aligned), tc.idx_lut.data_ptr(),
+                 tc.coefs.data_ptr(),
                  tc.coefs.numel(), ctypes.cast(plan, _c), tc.lo, tc.hi,
                  tc.w_in, tc.w_out, stream_of(x))
 
@@ -189,7 +218,7 @@ def softmax_ppa(x: torch.Tensor, tc, where: Optional[torch.Tensor] = None
         return torch.empty_like(x)
     if x.device.type == "cpu":
         return softmax_ppa_plain(x, tc, where)
-    y, args = _launch_args(x, tc, where, "softmax_ppa", _LANE_VALUES)
+    y, args = _launch_args(x, tc, where, "softmax_ppa", route)
     with torch.cuda.device(x.device):
         rc = _lib().softmax_ppa_launch(x.data_ptr(), *args)
     raise_on_error(rc, "softmax_ppa")
@@ -277,8 +306,7 @@ def softmax_ppa_bwd(x: torch.Tensor, g: torch.Tensor, tc,
         return torch.empty_like(x)
     if x.device.type == "cpu":
         return softmax_ppa_bwd_plain(x, g, tc, where)
-    dx, args = _launch_args(x, tc, where, "softmax_ppa_bwd",
-                            _BWD_LANE_VALUES, g)
+    dx, args = _launch_args(x, tc, where, "softmax_ppa_bwd", bwd_route, g)
     with torch.cuda.device(x.device):
         rc = _lib().softmax_ppa_bwd_launch(x.data_ptr(), g.data_ptr(), *args)
     raise_on_error(rc, "softmax_ppa_bwd")

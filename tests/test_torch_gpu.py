@@ -41,7 +41,8 @@ SOFTMAX_SHAPES = [(4, 8, 2, 1, 512), (4, 8, 2, 128, 128), (4, 4, 7, 1, 512),
 #: a decode row
 TRAIN_SOFTMAX_SHAPES = [(4, 8, 2, 512, 512), (4, 8, 2, 1, 512),
                         (4, 8, 6, 768, 768)]
-#: both layouts of the warp-per-row path, and the block-per-row path
+#: both layouts of the forward's warp-per-row path and its block-per-row
+#: path; the backward's row kernel and, unaligned, its earlier paths
 ROW_LENGTHS = [1, 31, 33, 512, 1024, 2048, 4096]
 INT32_EXTREMES = [-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1]
 
@@ -265,9 +266,10 @@ def test_softmax_bwd_kernel_at_launch_shapes(shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", ROW_LENGTHS)
 def test_softmax_bwd_kernel_row_lengths(n):
-    """Rows of both paths (warp per row up to 1024 scores, block per row
-    beyond), masked and not, aligned and not, with a three-way tie for a
-    row's max; an all-masked row gives exactly 0."""
+    """Rows of every path (aligned rows of a multiple of 4 across the
+    warps of a block; unaligned ones one warp a row up to 1024 scores, one
+    block a row beyond), masked and not, aligned and not, with a three-way
+    tie for a row's max; an all-masked row gives exactly 0."""
     dev = _card()
     tc = K.pack_table(load_table("exp2_frac", 16), dev)
     rng = np.random.default_rng(n + 1)
@@ -953,20 +955,21 @@ def test_sharded_adafactor_over_nccl_on_two_cards(tmp_path):
                                        atol=OPT_ATOL, err_msg=str(key))
 
 
-#: the training rows the backward takes its block path on (rows longer than
-#: its warp path's 1024 scores): whisper's encoder scores at batch 1, every
-#: key valid, and hymba's at batch 1 under its window of 1024
+#: the longest training rows, each across the 4 warps of a block (the
+#: backward's row kernel): whisper's encoder scores at batch 1, every key
+#: valid, and hymba's at batch 1 under its window of 1024
 BLOCK_BWD_CASES = {"whisper encoder": ((1, 16, 1, 1500, 1500), None),
                    "hymba window": ((1, 5, 5, 2048, 2048), 1024)}
+BLOCK_BWD_LAYOUTS = {1500: (4, 4, 3), 2048: (4, 4, 4)}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(BLOCK_BWD_CASES))
 def test_softmax_bwd_block_kernel_at_training_rows(case):
-    """The softmax backward kernel on the block path within
+    """The softmax backward kernel on the longest training rows within
     SOFTMAX_BWD_REL of its plain version: unmasked and under the all-valid
     mask at whisper's rows of 1500, under hymba's causal window at rows of
-    2048 (every row from 1 to 1024 valid keys)."""
+    2048 (every row from 1 to 1024 valid keys), each row across 4 warps."""
     dev = _card()
     shape, window = BLOCK_BWD_CASES[case]
     tc = K.pack_table(load_table("exp2_frac", 16), dev)
@@ -974,7 +977,7 @@ def test_softmax_bwd_block_kernel_at_training_rows(case):
     x = torch.randn(shape, generator=gen, device=dev) * 4.0
     g = torch.randn(shape, generator=gen, device=dev)
     b, t, s = shape[0], shape[-2], shape[-1]
-    assert softmax_ppa.route(s, True, softmax_ppa._BWD_LANE_VALUES) == (0, 0)
+    assert softmax_ppa.bwd_route(s, True) == BLOCK_BWD_LAYOUTS[s]
     if window is None:
         masks = (None, torch.ones((b, 1, 1, t, s), dtype=torch.bool,
                                   device=dev))
@@ -1015,3 +1018,106 @@ def test_ste_gradient_of_the_fused_kernel_on_decays():
     assert ck["ref"]["plain"] == 0
     assert torch.equal(yk, yr)
     assert torch.equal(gk, gr)
+
+
+def _bwd_layout_rows():
+    """The longest row of each layout the backward's chooser picks."""
+    out = {}
+    for n in range(4, 8193, 4):
+        out[softmax_ppa.bwd_route(n, True)] = n
+    return sorted(out.values())
+
+
+#: the backward's row kernel: the training rows (512, 768, 1500, 2048), its
+#: longest row, and the longest row of each layout its chooser picks
+BWD_ROW_LENGTHS = sorted({512, 768, 1500, 2048, 8192, *_bwd_layout_rows()})
+#: the masks and inputs each length is held under; "offset 4 B" moves x and
+#: g off 16-byte alignment, onto the earlier paths
+BWD_ROW_CASES = ["no mask", "causal", "window 1024", "all valid",
+                 "all-masked row", "three-way tie", "strided mask",
+                 "offset 4 B"]
+
+
+def _bwd_row_case(dev, n, case, rows: int = 8):
+    """(x, g, where) of scores (2, 3, 1, rows, n) for one case of
+    BWD_ROW_CASES: the masks (2, 1, 1, rows, n) as attention's, with the
+    query positions spread over the row; "strided mask" a view whose
+    column stride is rows (so the kernel reads its bytes one at a time)."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    shape = (2, 3, 1, rows, n)
+    flat = torch.randn(2 * 3 * rows * n + 1, generator=gen, device=dev) * 4
+    gflat = torch.randn(flat.numel(), generator=gen, device=dev)
+    lo = 1 if case == "offset 4 B" else 0
+    x = flat[lo:lo + flat.numel() - 1].view(shape)
+    g = gflat[lo:lo + flat.numel() - 1].view(shape)
+    qp = torch.linspace(0, n - 1, rows, device=dev).long()[:, None]
+    kp = torch.arange(n, device=dev)[None, :]
+    rand = torch.rand((2, 1, 1, rows, n), generator=gen, device=dev) < 0.7
+    where = {"no mask": None, "offset 4 B": rand,
+             "causal": (kp <= qp).expand(2, 1, 1, rows, n),
+             "window 1024": ((kp <= qp) & (kp > qp - 1024)
+                             ).expand(2, 1, 1, rows, n),
+             "all valid": torch.ones((2, 1, 1, rows, n), dtype=torch.bool,
+                                     device=dev),
+             "all-masked row": rand, "three-way tie": rand,
+             "strided mask": (torch.rand((n, rows), generator=gen,
+                                         device=dev) < 0.7).t()}[case]
+    if case == "all-masked row":
+        where[1, 0, 0, 3] = False
+    if case == "three-way tie":
+        x[1, 2, 0, 5, :3] = x[1, 2, 0, 5].max() + 1.0
+        where[1, 0, 0, 5, :3] = True
+    return x, g, where
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_ROW_CASES)
+@pytest.mark.parametrize("n", BWD_ROW_LENGTHS)
+def test_softmax_bwd_row_kernel(n, case):
+    """The backward's row kernel (each row across the warps of a block) at
+    every training row length, its longest row and every layout its
+    chooser picks, held to the plain version within SOFTMAX_BWD_REL of the
+    largest gradient, with one launch and no plain call; an all-masked row
+    gives exactly 0, and an input 4 B off alignment takes the earlier
+    paths."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 16), dev)
+    x, g, where = _bwd_row_case(dev, n, case)
+    warps, vec, items = softmax_ppa.bwd_route(n, x.data_ptr() % 16 == 0)
+    assert (warps == 0) == (case == "offset 4 B")
+    if warps:
+        assert 32 * warps * items * vec >= n and vec * items <= 16
+    K.reset_counts()
+    got = softmax_ppa.softmax_ppa_bwd(x, g, tc, where)
+    torch.cuda.synchronize()
+    assert K.read_counts()["softmax_ppa_bwd"] == {"launches": 1, "plain": 0}
+    want = softmax_ppa.softmax_ppa_bwd_plain(x, g, tc, where)
+    assert float((got - want).abs().max()) <= (
+        SOFTMAX_BWD_REL * float(g.abs().max()))
+    if case == "all-masked row":
+        assert not got[1, :, 0, 3].any()
+    if case == "three-way tie":
+        assert float(got[1, 2, 0, 5, :3].abs().min()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", BWD_ROW_LENGTHS)
+def test_softmax_bwd_row_kernel_8bit_table(n):
+    """The row kernel on the 8-bit exp2_frac table (a polynomial of order
+    1, another template entry; at 4 runs a lane it loads the next row's g
+    after the exponentials) under a random mask with an all-masked row and
+    a three-way tie, as ``test_softmax_bwd_row_kernel``."""
+    dev = _card()
+    tc = K.pack_table(load_table("exp2_frac", 8), dev)
+    assert tc.plan.order == 1
+    x, g, where = _bwd_row_case(dev, n, "three-way tie")
+    where[1, 0, 0, 3] = False
+    assert softmax_ppa.bwd_route(n, True)[0] > 0
+    K.reset_counts()
+    got = softmax_ppa.softmax_ppa_bwd(x, g, tc, where)
+    torch.cuda.synchronize()
+    assert K.read_counts()["softmax_ppa_bwd"] == {"launches": 1, "plain": 0}
+    want = softmax_ppa.softmax_ppa_bwd_plain(x, g, tc, where)
+    assert float((got - want).abs().max()) <= (
+        SOFTMAX_BWD_REL * float(g.abs().max()))
+    assert not got[1, :, 0, 3].any()

@@ -405,8 +405,8 @@ def test_softmax_bwd_plain_is_reference_vjp(bits, masked):
     assert float(got[0, 1, 2, [3, 17, 30]].abs().min()) > 0.0
 
 
-#: rows the card's training takes the backward's block path on (rows longer
-#: than its warp path's 1024 scores), at batch 1 and a few heads: whisper's
+#: the longest rows of the card's training, each across 4 warps of a block
+#: in the backward's row kernel, at batch 1 and a few heads: whisper's
 #: encoder and cross attention (rows of 1500, every key valid) and hymba's
 #: windowed layers (rows of 2048, keys within a window of 1024 of a causal
 #: query), held at query rows across the sequence
@@ -436,8 +436,7 @@ def test_softmax_bwd_plain_is_reference_vjp_on_long_rows(case):
     tw = None if where is None else torch.from_numpy(where.copy())
     got = softmax_ppa.softmax_ppa_bwd_plain(torch.from_numpy(x),
                                             torch.from_numpy(g), tc, tw)
-    assert softmax_ppa.route(shape[-1], True, softmax_ppa._BWD_LANE_VALUES
-                             ) == (0, 0)
+    assert softmax_ppa.bwd_route(shape[-1], True)[0] == 4
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=SOFTMAX_GRAD_RTOL,
                                atol=SOFTMAX_GRAD_ATOL)
